@@ -1,0 +1,111 @@
+"""Host-side datasets: the hermetic synthetic optic pools.
+
+The port's copy of the synthetic half of ``aadg_tpu/data/datasets.py``
+(:141-273), with the same numpy generator calls so the pools are identical
+byte for byte. The Fundus and RVS disk readers are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+
+
+@dataclass
+class DomainData:
+    """One domain's images/labels."""
+    name: str
+    images: np.ndarray              # (N, H, W, 3) uint8
+    labels: np.ndarray              # (N, H, W) uint8 (raw gray values)
+    names: List[str] = field(default_factory=list)
+    rois: Optional[np.ndarray] = None
+
+
+class SyntheticDataset:
+    """Optic-style pools: a bright disc with a darker cup on a
+    domain-dependent background (mask gray levels 255/128/0 like Fundus).
+    ``task="optic_tint"`` is the learning-testbed variant whose domains
+    differ only by a chroma tint."""
+
+    def __init__(self, task: str = "optic", n_domains: int = 3,
+                 n_per_domain: int = 12, size: int = 64, seed: int = 0):
+        if task not in ("optic", "optic_tint"):
+            raise NotImplementedError(
+                f"synthetic task {task!r} is not ported yet")
+        make = self._make_optic_tint if task == "optic_tint" else \
+            self._make_optic
+        rng = np.random.default_rng(seed)
+        self.domains = []
+        for d in range(n_domains):
+            imgs, labels, names = [], [], []
+            for i in range(n_per_domain):
+                img, lab = make(rng, size, d)
+                imgs.append(img)
+                labels.append(lab)
+                names.append(f"d{d}_{i}.png")
+            self.domains.append(DomainData(
+                f"SYN{d}", np.stack(imgs), np.stack(labels), names))
+
+    @staticmethod
+    def _disc_and_cup(rng, size):
+        yy, xx = np.mgrid[0:size, 0:size]
+        cy, cx = rng.uniform(size * .3, size * .7, 2)
+        r_disc = rng.uniform(size * .15, size * .25)
+        r_cup = r_disc * rng.uniform(0.4, 0.7)
+        disc = (yy - cy) ** 2 + (xx - cx) ** 2 < r_disc ** 2
+        cup = (yy - cy) ** 2 + (xx - cx) ** 2 < r_cup ** 2
+        lab = np.full((size, size), 255, np.uint8)
+        lab[disc] = 128
+        lab[cup] = 0
+        return disc, cup, lab
+
+    @staticmethod
+    def _make_optic_tint(rng, size, domain):
+        disc, cup, lab = SyntheticDataset._disc_and_cup(rng, size)
+        luma = rng.normal(85.0, 15.0, (size, size, 1))
+        luma[disc] += 50
+        luma[cup] += 25
+        tint = float(25 * (domain - 1))  # -25 / 0 / +25
+        img = np.clip(luma + np.array([tint, 0.0, -tint]), 0, 255)
+        return img.astype(np.uint8), lab
+
+    @staticmethod
+    def _make_optic(rng, size, domain):
+        disc, cup, lab = SyntheticDataset._disc_and_cup(rng, size)
+        base = 60 + 40 * domain
+        img = np.clip(rng.normal(base, 15, (size, size, 3)), 0, 255)
+        img[disc] = np.clip(img[disc] + 80, 0, 255)
+        img[cup] = np.clip(img[cup] + 40, 0, 255)
+        return img.astype(np.uint8), lab
+
+
+def build_dataset(cfg, phase: str):
+    """Dataset factory for the ``synthetic*`` names."""
+    name = cfg.DATASET.NAME
+    if not name.startswith("synthetic") or "optic" not in name:
+        raise NotImplementedError(
+            f"dataset {name!r} is not ported yet (ROADMAP queue 1)")
+    task = "optic_tint" if "optic_tint" in name else "optic"
+    n_dom = 3 if phase == "train" else 1
+    size = int(cfg.TPU.SYNTHETIC_SIZE)
+    return SyntheticDataset(task=task, n_domains=n_dom,
+                            n_per_domain=12 if phase == "train" else 4,
+                            size=size, seed=0 if phase == "train" else 1)
+
+
+def load_train_arrays(dataset):
+    """Pad per-domain pools to a common N and stack:
+    (D, Nmax, H, W, 3) u8 images, (D, Nmax, H, W) u8 labels, counts (D,)."""
+    domains = dataset.domains
+    n_max = max(d.images.shape[0] for d in domains)
+    imgs, labels, counts = [], [], []
+    for d in domains:
+        n = d.images.shape[0]
+        pad = [(0, n_max - n)] + [(0, 0)] * (d.images.ndim - 1)
+        imgs.append(np.pad(d.images, pad))
+        labels.append(np.pad(d.labels, pad[:d.labels.ndim]))
+        counts.append(n)
+    return (np.stack(imgs), np.stack(labels),
+            np.asarray(counts, np.int32))

@@ -1,0 +1,164 @@
+"""Entities, training state and optimizers (port of
+``aadg_tpu/engine/state.py``).
+
+Where the JAX package keeps parameters in pytrees that flow through pure
+steps, here the modules own their parameters and the optimizers update
+them in place. ``Entities`` holds what a run builds once from the config;
+``init_state`` makes the seeded modules and their optimizers.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import CfgNode
+from ..data.transforms import make_train_transform
+from ..models.controller import Controller, ControllerSpec, spec_from_config
+from ..models.deeplab import DeepLabV3Plus
+from ..models.discriminator import (MomentumFeatureDiscriminator,
+                                    build_discriminator)
+from ..ops import augment as aug_mod
+
+
+class ScheduledAdam:
+    """torch.optim.Adam (L2 weight decay folded into the gradient before
+    the moments, as optax ``add_decayed_weights`` + ``scale_by_adam``) whose
+    learning rate is ``schedule(count)`` at update ``count`` = 0, 1, ..."""
+
+    def __init__(self, params, schedule: Callable[[int], float],
+                 wd: float = 0.0):
+        self.schedule = schedule
+        self.count = 0
+        self.opt = torch.optim.Adam(list(params), lr=schedule(0),
+                                    betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=wd)
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        for group in self.opt.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.opt.step()
+        self.count += 1
+
+
+def torch_adam(params, lr, wd: float = 0.0) -> ScheduledAdam:
+    """Adam with torch semantics; ``lr`` is a float or a schedule."""
+    schedule = lr if callable(lr) else (lambda step, lr=float(lr): lr)
+    return ScheduledAdam(params, schedule, wd)
+
+
+def multistep_schedule(base_lr: float, milestone_step: int,
+                       gamma: float = 0.1) -> Callable[[int], float]:
+    """MultiStepLR([milestone], gamma) counted in steps."""
+    return lambda step: base_lr * (gamma if step >= milestone_step else 1.0)
+
+
+def resolve_search_space(cfg: CfgNode, logger=None) -> List[str]:
+    """Search-space op names after EXCLUDE_OPS (by name) or
+    EXCLUDE_OPS_NUM (random removals, seeded by cfg.SEED)."""
+    names = aug_mod.augment_list()
+    if len(cfg.CONTROLLER.EXCLUDE_OPS) > 0:
+        names = [n for n in names if n not in cfg.CONTROLLER.EXCLUDE_OPS]
+        if logger:
+            logger.info(str(list(cfg.CONTROLLER.EXCLUDE_OPS)))
+    elif cfg.CONTROLLER.EXCLUDE_OPS_NUM > 0:
+        rng = np.random.default_rng(cfg.SEED if cfg.SEED else None)
+        for _ in range(cfg.CONTROLLER.EXCLUDE_OPS_NUM):
+            removed = names.pop(int(rng.integers(len(names))))
+            if logger:
+                logger.info(removed)
+    return names
+
+
+class Entities(NamedTuple):
+    ctrl_spec: ControllerSpec
+    transform: Callable       # (imgs, masks, ScaleCropDraw) -> (x, y)
+    scale_range: tuple
+    multi_policy: Callable    # batched DGMultiPolicy applier
+    op_names: list
+    n_domains: int
+    num_classes: int
+    dis_name: str
+    feature_dim: int
+    lr: float
+    wd: float
+    warmup_steps: int
+    device: torch.device
+    compute_dtype: torch.dtype
+
+    def autocast(self):
+        """Autocast context for the segmentation model's forward."""
+        return torch.autocast(self.device.type, dtype=torch.bfloat16,
+                              enabled=self.compute_dtype == torch.bfloat16)
+
+
+class SegDisState(NamedTuple):
+    model: DeepLabV3Plus
+    disc: MomentumFeatureDiscriminator
+    seg_opt: ScheduledAdam
+    dis_opt: ScheduledAdam
+
+
+class CtrlState(NamedTuple):
+    controller: Controller
+    opt: ScheduledAdam
+
+
+def build_entities(cfg: CfgNode, mode: str = "search",
+                   steps_per_epoch: int = 1, device="cpu",
+                   logger=None) -> Entities:
+    if mode != "search":
+        raise NotImplementedError(
+            f"mode {mode!r} is not ported yet (ROADMAP queue 1, item 3)")
+    if cfg.MODEL.NAME != "deeplabv3+" or cfg.MODEL.BACKBONE != "mobilenet_v2":
+        raise NotImplementedError(
+            f"model {cfg.MODEL.NAME}/{cfg.MODEL.BACKBONE} is not ported yet "
+            "(ROADMAP queue 1, item 7)")
+    if int(cfg.TPU.DATA_PARALLEL) not in (-1, 1):
+        raise NotImplementedError(
+            "data parallelism is not ported yet (ROADMAP queue 1, item 6)")
+    base = "optic" if "optic" in cfg.DATASET.NAME else "rvs"
+    transform, scale_range = make_train_transform(
+        base, int(cfg.TPU.CROP_SIZE))
+    op_names = resolve_search_space(cfg, logger)
+    spec = spec_from_config(cfg, num_ops=len(op_names))
+    multi_policy = aug_mod.make_multi_policy_applier(
+        op_names, spec.Q, spec.L, spec.num_mags)
+    dtype = {"bfloat16": torch.bfloat16,
+             "float32": torch.float32}[cfg.TPU.COMPUTE_DTYPE]
+    return Entities(
+        ctrl_spec=spec, transform=transform, scale_range=scale_range,
+        multi_policy=multi_policy, op_names=op_names, n_domains=3,
+        num_classes=2, dis_name=cfg.DISCRIMINATOR.NAME,
+        feature_dim=DeepLabV3Plus.feature_dim, lr=float(cfg.TRAIN.LR),
+        wd=float(cfg.TRAIN.WD),
+        warmup_steps=int(cfg.TRAIN.WARMUP_EPOCH) * steps_per_epoch,
+        device=torch.device(device), compute_dtype=dtype)
+
+
+def init_state(ent: Entities, seed: int):
+    """Seeded modules on ``ent.device`` and their optimizers. Returns
+    (SegDisState, CtrlState). The global RNG is left as it was."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = DeepLabV3Plus(ent.num_classes)
+        disc = build_discriminator(ent.dis_name, ent.n_domains,
+                                   ent.feature_dim)
+        controller = Controller(ent.ctrl_spec)
+    model.to(ent.device)
+    if ent.device.type == "cuda":
+        model.to(memory_format=torch.channels_last)
+    disc.to(ent.device)
+    controller.to(ent.device)
+    sd = SegDisState(
+        model=model, disc=disc,
+        seg_opt=torch_adam(model.parameters(), multistep_schedule(
+            ent.lr, ent.warmup_steps, 0.1), ent.wd),
+        dis_opt=torch_adam(disc.online.parameters(), ent.lr))
+    cs = CtrlState(controller, torch_adam(controller.parameters(), 0.00035))
+    return sd, cs

@@ -1,0 +1,187 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_port_*.py).
+
+JAX's threefry bits cannot be reproduced by torch's generators, so every
+randomized function of the port takes its draws as tensors. The ``*_draws``
+helpers walk the JAX key trees exactly as ``aadg_tpu`` does and return the
+numbers JAX drew, as numpy arrays, for the port's apply functions. The rest
+builds one JAX/port pair of search-step states from the same weights and
+compares what the two steps produce.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from aadg_tpu.config import load_config as jax_load_config
+from aadg_tpu.engine import state as jstate
+from aadg_tpu_torch.config import load_config
+from aadg_tpu_torch.data.datasets import SyntheticDataset
+from aadg_tpu_torch.data.transforms import ScaleCropDraw
+from aadg_tpu_torch.engine import state as tstate
+from aadg_tpu_torch.weights import from_flax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """Two intra-op threads per test module, restored afterwards: the suite
+    runs several pytest workers at once, and each torch process taking
+    every core for its small CPU kernels slowed these tests fivefold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def policy_draws(keys, M, Q, L, h, w):
+    """Per-sample keys (N, 2) of ``make_multi_policy_applier`` ->
+    q (N, M) int64 and Cutout centres (N, M, L, 2) f32 (x, y)."""
+    def one(key_nm):
+        kq, kops = jax.random.split(key_nm)
+        q = jax.random.randint(kq, (), 0, Q)
+        ks = jax.random.split(kops, L)
+
+        def centre(k):
+            kx, ky = jax.random.split(k)
+            return jnp.stack([
+                jax.random.uniform(kx, (), minval=0.0, maxval=float(w)),
+                jax.random.uniform(ky, (), minval=0.0, maxval=float(h))])
+        return q, jax.vmap(centre)(ks)
+
+    def per_sample(key):
+        return jax.vmap(one)(jax.random.split(key, M))
+
+    q, c = jax.vmap(per_sample)(keys)
+    return np.array(q, np.int64), np.array(c, np.float32)
+
+
+def scale_crop_draws(keys, scale_range, p_noscale=0.2):
+    """Per-sample keys (N, 2) of ``random_scale_crop`` -> (sw, sh, ux, uy)."""
+    lo, hi = scale_range
+
+    def one(key):
+        k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+        do_scale = jax.random.uniform(k1) > p_noscale
+        sw = jnp.where(do_scale, jax.random.uniform(k2, minval=lo,
+                                                    maxval=hi), 1.0)
+        sh = jnp.where(do_scale, jax.random.uniform(k3, minval=lo,
+                                                    maxval=hi), 1.0)
+        return sw, sh, jax.random.uniform(k4), jax.random.uniform(k5)
+
+    return tuple(np.array(a, np.float32) for a in jax.vmap(one)(keys))
+
+
+def soft_label_draws(keys, n):
+    """Per-sample keys (N, 2) of ``soft_domain_label`` -> (N, n) uniforms
+    in the port's layout (key 0, then keys 1..n-1)."""
+    def one(key):
+        ks = jax.random.split(key, n + 1)
+        return jnp.stack([jax.random.uniform(ks[i]) for i in range(n)])
+
+    return np.array(jax.vmap(one)(keys), np.float32)
+
+
+CROP, M = 64, 2
+OPTS = ["DATASET.NAME", "synthetic_optic", "TPU.CROP_SIZE", "64",
+        "TRAIN.BATCH_SIZE", "1", "CONTROLLER.M", "2",
+        "TPU.COMPUTE_DTYPE", "float32", "TRAIN.WD", "0.0001"]
+CFG = "experiments/optic_sinkhorn/diversity.yaml"
+
+
+def _capture():
+    """An optax transform whose state after update is the gradient and whose
+    update is zero: the JAX step then hands back its gradients."""
+    zeros = lambda t: jax.tree_util.tree_map(jnp.zeros_like, t)
+    return optax.GradientTransformation(
+        zeros, lambda g, s, p=None: (zeros(g), g))
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(lambda a: np.array(a, np.float32), tree)
+
+
+def step_pair():
+    """(JAX entities with gradient-capturing optimizers, JAX state, port
+    entities, raw batch (1, 3, 64, 64, 3)) at the flagship config cut to
+    crop 64, B=1, M=2, f32."""
+    jcfg = jax_load_config(CFG, OPTS)
+    jent = jstate.build_entities(jcfg, "search", steps_per_epoch=1)
+    jent = jent._replace(model_tx=_capture(), dis_tx=_capture())
+    k_model, k_dis = jax.random.split(jax.random.PRNGKey(0))
+    variables = jax.jit(lambda k: jent.model.init(
+        k, jnp.zeros((1, CROP, CROP, 3)), train=False))(k_model)
+    dis_params = jent.disc.init(k_dis, jnp.zeros((1, jent.feature_dim)))[
+        "params"]
+    sd = jstate.SegDisState(
+        seg_params=variables["params"], seg_stats=variables["batch_stats"],
+        seg_opt=jent.model_tx.init(variables["params"]),
+        dis_params=dis_params, dis_stats={},
+        dis_opt=jent.dis_tx.init(dis_params))
+    tent = tstate.build_entities(load_config(CFG, OPTS), "search",
+                                 steps_per_epoch=1, device="cpu")
+    ds = SyntheticDataset("optic", n_per_domain=1, size=64)
+    imgs = np.stack([d.images[0] for d in ds.domains])[None].astype(
+        np.float32)                                   # (1, 3, 64, 64, 3)
+    masks = np.stack([d.labels[0] for d in ds.domains])[None].astype(
+        np.float32)
+    dcs = np.arange(3, dtype=np.int32)[None]
+    return jent, sd, tent, (imgs, masks, dcs)
+
+
+def port_state(tent, sd):
+    tsd, _ = tstate.init_state(tent, 0)
+    tsd.model.load_state_dict(from_flax({"params": _np(sd.seg_params),
+                                         "batch_stats": _np(sd.seg_stats)}),
+                              strict=True)
+    tsd.disc.load_state_dict(from_flax({"params": _np(sd.dis_params)}),
+                             strict=True)
+    return tsd
+
+
+def torch_batch(batch):
+    imgs, masks, dcs = batch
+    return (torch.from_numpy(imgs), torch.from_numpy(masks),
+            torch.from_numpy(dcs.astype(np.int64)))
+
+
+def crop_draw(keys):
+    return ScaleCropDraw(*(torch.from_numpy(a) for a in
+                           scale_crop_draws(keys, (1.0, 1.5))))
+
+
+def check_grads(module, jgrads, tight: bool):
+    """Compare ``.grad`` of every trainable parameter with the JAX
+    gradients (see the module docstring for the two criteria)."""
+    ref = from_flax({"params": _np(jgrads)})
+    pairs = [(k, p.grad.numpy(), ref[k].numpy())
+             for k, p in module.named_parameters() if p.requires_grad]
+    assert len(pairs) == sum(p.requires_grad for p in module.parameters())
+    if tight:
+        for k, g, j in pairs:
+            scale = max(float(np.abs(j).max()), 1e-12)
+            np.testing.assert_allclose(g, j, rtol=0, atol=1e-3 * scale,
+                                       err_msg=k)
+        return
+    g_all = np.concatenate([g.ravel() for _, g, _ in pairs])
+    j_all = np.concatenate([j.ravel() for _, _, j in pairs])
+    assert np.linalg.norm(g_all - j_all) <= 0.15 * np.linalg.norm(j_all)
+    top = max(np.linalg.norm(j) for _, _, j in pairs)
+    for k, g, j in pairs:
+        if np.linalg.norm(j) > 0.01 * top:
+            assert np.linalg.norm(g - j) <= 0.25 * np.linalg.norm(j), k
+
+
+def check_stats(model, jstats):
+    sd = model.state_dict()
+    for k, v in from_flax({"batch_stats": _np(jstats)}).items():
+        np.testing.assert_allclose(sd[k].numpy(), v.numpy(), rtol=2e-4,
+                                   atol=2e-4, err_msg=k)
+
+
+def check_metrics(tm, jm):
+    for k in ("seg_loss", "dis_loss"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4)
+    for k in ("cup_dsc", "disc_dsc"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=1e-3)
