@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("hist3", "lut_apply3", "softmin")
+KERNEL_SOURCES = ("hist3", "lut_apply3", "sinkhorn_solve", "softmin")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

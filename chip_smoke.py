@@ -8,11 +8,17 @@ exit code:
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: nvcc on aadg_tpu_torch/csrc/*.cu (all sources at once, sm_90a),
    with the build time and the -Xptxas -v summary;
-3. kernels: K1 (softmin), K2 (hist3) and K3 (lut_apply3) held to their
-   plain PyTorch versions at the main path's shapes (K2/K3 exactly, K1
-   within rtol 1e-5 / atol 1e-6, also on one 4096 x 4096 x 128 cloud),
-   then timed with CUDA events beside the plain version, one library call
-   where one exists, and the least time the card could take (bound);
+3. kernels: K1 (softmin), sinkhorn_solve, K2 (hist3) and K3 (lut_apply3)
+   held to their plain PyTorch versions at the main path's shapes (K2/K3
+   exactly, K1 and sinkhorn_solve within rtol 1e-5 / atol 1e-6; K1 also on
+   one 4096 x 4096 x 128 cloud, sinkhorn_solve also on a ragged weighted
+   case and at its size limit), then timed with CUDA events beside the
+   plain version, one library call where one exists, and the least time
+   the card could take (bound); sinkhorn_solve also beside the 26-launch
+   K1 route it replaced on the main path, with the device time per call of
+   both from torch.profiler. K1 is driven through its own route (a
+   sinkhorn_divergence above SOLVE_MAX_POINTS), and the rewards' call
+   pairwise_domain_ot runs under torch.cuda.set_sync_debug_mode("error");
 4. reference: one search step on the card (kernels) and on the CPU (plain
    versions) from the same weights, batch and draws at crop 64 in f32;
    losses within rtol 1e-4 and rewards within rtol 1e-3;
@@ -20,10 +26,13 @@ exit code:
    (experiments/optic_sinkhorn/diversity.yaml: DeepLabV3+/MobileNetV2,
    B=8 x 3 domains x M=6 policies, crop 256) on synthetic_optic at 256^2,
    one warmup and two search epochs of two steps, with every launch
-   counter set to 0 just before; each kernel must have been launched and
-   every loss and reward must be finite;
+   counter set to 0 just before; sinkhorn_solve must have been launched
+   once per search step, K1 never, K2 and K3 at least once, and every loss
+   and reward must be finite;
 6. profile: three more flagship search steps under torch.profiler, with
-   the device time per kernel category and the device's idle share.
+   the device time per kernel category, the device's idle share, the host
+   and device time of each stage, and the stream synchronizations and
+   host-to-device copies per step.
 
 Then a line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when no
@@ -165,20 +174,150 @@ def phase_kernels(dev):
                 "bound_ms": b, "bound_by": by, "max_abs_err": max(errs),
                 "shape": [p, nn, m, d]}
 
-    # the rewards' launch: 6 policies x 3 domain pairs x {xy, xx, yy}
+    # the 26-launch route's shape: 6 policies x 3 domain pairs x {xy, xx, yy}
     flag = softmin_case(54, 8, 8, 128)
     large = softmin_case(1, 4096, 4096, 128)
+    route = softmin_route(dev, gen)
     rows.append({"name": "softmin", "route": "cuda",
                  "source": "aadg_tpu_torch/csrc/softmin.cu",
                  "replaces": "aadg_tpu/ops/sinkhorn_pallas.py:35",
                  "launches": 0, "library_ms": None, **flag,
-                 "large_cloud": large})
+                 "large_cloud": large, "own_route": route})
     for tag, r in (("54x8x8x128", flag), ("1x4096x4096x128", large)):
         log(f"[kernels] softmin within rtol 1e-5 at {tag} "
             f"(max abs err {r['max_abs_err']:.3g}): {r['ms']:.4f} ms "
             f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
             f"{r['bound_by']})")
+    rows.append(solve_row(dev, gen))
+    check_rewards_never_sync(dev, gen)
     return rows
+
+
+def profiled_device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: the sum of its kernels' device
+    time under torch.profiler over ``iters`` calls, divided by ``iters``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
+def softmin_route(dev, gen):
+    """K1 on its own route: a divergence of clouds above SOLVE_MAX_POINTS
+    goes through one softmin launch per half-step, held to the plain
+    version within rtol 1e-5 / atol 1e-6."""
+    from aadg_tpu_torch.ops import sinkhorn
+    p, n, d = 2, 512, 128
+    if sinkhorn.divergence_route("cuda", n, n, d) != "softmin":
+        raise AssertionError(f"{n} points should take the K1 route")
+    x = torch.randn(p, n, d, generator=gen, device=dev)
+    y = torch.randn(p, n, d, generator=gen, device=dev) + 0.3
+    before = (sinkhorn.softmin.launches, sinkhorn.sinkhorn_solve.launches)
+    got = sinkhorn.sinkhorn_divergence(x, y)
+    launched = (sinkhorn.softmin.launches - before[0],
+                sinkhorn.sinkhorn_solve.launches - before[1])
+    torch.cuda.synchronize()
+    if launched[0] <= 0 or launched[1] != 0:
+        raise AssertionError(f"K1 route launched (softmin, sinkhorn_solve) "
+                             f"{launched}")
+    want = sinkhorn.sinkhorn_solve_plain(
+        x, y, sinkhorn._eps_schedule(2.0, 0.05, 0.5, 5))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    err = float((got - want).abs().max())
+    log(f"[kernels] softmin route: sinkhorn_divergence at {p}x{n}x{n}x{d} "
+        f"took {launched[0]} K1 launches, within rtol 1e-5 of the plain "
+        f"version (max abs err {err:.3g}, divergences {got.tolist()})")
+    return {"shape": [p, n, n, d], "softmin_launches": launched[0],
+            "max_abs_err": err}
+
+
+def solve_row(dev, gen):
+    """sinkhorn_solve against its plain version at the main path's 18
+    divergences of 8 vs 8 points x 128, a ragged weighted case (5 vs 9) and
+    the size limit, within rtol 1e-5 / atol 1e-6; timed at the main path's
+    shape beside the plain version and the 26-launch K1 route."""
+    from aadg_tpu_torch.ops import sinkhorn
+    eps = sinkhorn._eps_schedule(2.0, 0.05, 0.5, 5)
+    lim, dim = sinkhorn.SOLVE_MAX_POINTS, sinkhorn.SOLVE_MAX_DIM
+    cases = {}
+    for tag, p, n, m, d, weighted in (
+            ("main", 18, 8, 8, 128, False), ("ragged", 4, 5, 9, 128, True),
+            ("limit", 2, lim, lim, dim, True)):
+        x = torch.randn(p, n, d, generator=gen, device=dev)
+        y = torch.randn(p, m, d, generator=gen, device=dev) + 0.3
+        wx, wy = ((torch.rand(p, n, generator=gen, device=dev) + 0.5,
+                   torch.rand(p, m, generator=gen, device=dev) + 0.5)
+                  if weighted else (None, None))
+        got = sinkhorn.sinkhorn_solve(x, y, eps, wx, wy)
+        torch.cuda.synchronize()
+        want = sinkhorn.sinkhorn_solve_plain(x, y, eps, wx, wy)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        cases[tag] = {"shape": [p, n, m, d], "weighted": weighted,
+                      "max_abs_err": float((got - want).abs().max()),
+                      "args": (x, y, wx, wy)}
+    x, y, _, _ = cases["main"]["args"]
+    solve = lambda: sinkhorn.sinkhorn_solve(x, y, eps)
+    plain = lambda: sinkhorn.sinkhorn_solve_plain(x, y, eps)
+    earlier = lambda: sinkhorn.sinkhorn_loop(sinkhorn.softmin, x, y, eps)
+    torch.testing.assert_close(earlier(), plain(), rtol=1e-5, atol=1e-6)
+    p, n, m, d = cases["main"]["shape"]
+    entries = n * m + n * n + m * m
+    # f32 operations: 2 D per cost entry, 8 per entry and half-step
+    b, by = bound_ms(4 * (p * n * d + p * m * d + p),
+                     p * entries * (2 * d + 8 * 2 * (len(eps) + 1)))
+    row = {"name": "sinkhorn_solve", "route": "cuda",
+           "source": "aadg_tpu_torch/csrc/sinkhorn_solve.cu",
+           "replaces": "aadg_tpu/ops/sinkhorn_pallas.py:35",
+           "launches": 0, "max_abs_err": max(
+               c["max_abs_err"] for c in cases.values()),
+           "ms": time_ms(solve), "plain_ms": time_ms(plain),
+           "bound_ms": b, "bound_by": by, "library_ms": None,
+           "earlier_ms": time_ms(earlier),
+           "device_ms": profiled_device_ms(solve),
+           "earlier_device_ms": profiled_device_ms(earlier),
+           "shape": [p, n, m, d],
+           "cases": {k: {kk: vv for kk, vv in c.items() if kk != "args"}
+                     for k, c in cases.items()}}
+    row["limit_ms"] = time_ms(lambda: sinkhorn.sinkhorn_solve(
+        *cases["limit"]["args"][:2], eps, *cases["limit"]["args"][2:]))
+    log(f"[kernels] sinkhorn_solve within rtol 1e-5 at "
+        + ", ".join(f"{k} {'x'.join(map(str, c['shape']))} (max abs err "
+                    f"{c['max_abs_err']:.3g})" for k, c in cases.items())
+        + f": {row['ms']:.4f} ms at main (device {row['device_ms']:.4f}; "
+        f"plain {row['plain_ms']:.4f}; 26-launch K1 route "
+        f"{row['earlier_ms']:.4f}, device {row['earlier_device_ms']:.4f}; "
+        f"bound {b:.6f} by {by}); {row['limit_ms']:.4f} ms at the limit")
+    return row
+
+
+def check_rewards_never_sync(dev, gen):
+    """The rewards' call at the flagship shape (M=6, 3 domains, B=8,
+    F=128) makes no synchronizing call and equals the CPU's result."""
+    from aadg_tpu_torch.ops import sinkhorn
+    feats = torch.randn(6, 3, 8, 128, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    before = sinkhorn.sinkhorn_solve.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sinkhorn.pairwise_domain_ot(feats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launched = sinkhorn.sinkhorn_solve.launches - before
+    want = sinkhorn.pairwise_domain_ot(feats.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    if launched != 1:
+        raise AssertionError(f"pairwise_domain_ot launched sinkhorn_solve "
+                             f"{launched} times")
+    log("[kernels] pairwise_domain_ot at 6x3x8x128: one sinkhorn_solve "
+        "launch, no synchronizing call under set_sync_debug_mode('error'), "
+        "equal to the CPU within rtol 1e-5")
 
 
 def phase_reference(dev):
@@ -234,17 +373,22 @@ def phase_main_path(dev):
     cfg.freeze()
     torch.cuda.reset_peak_memory_stats(dev)
     wrappers = {"hist3": lut.hist3, "lut_apply3": lut.lut_apply3,
-                "softmin": sinkhorn.softmin}
+                "softmin": sinkhorn.softmin,
+                "sinkhorn_solve": sinkhorn.sinkhorn_solve}
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
     summary = run_search(cfg, cfg_path, device=dev)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    n_steps = len(summary["search_step_seconds"])
+    expect = {"sinkhorn_solve": lambda v: v == n_steps,
+              "softmin": lambda v: v == 0,
+              "hist3": lambda v: v > 0, "lut_apply3": lambda v: v > 0}
     for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main "
-                                 "path")
+        if not expect[k](v):
+            raise AssertionError(f"kernel {k} launched {v} times over the "
+                                 f"main path's {n_steps} search steps")
     for e in summary["epochs"]:
         vals = list(e["metrics"].values()) + e.get("rewards", []) + [
             x for r in e.get("raw_rewards", []) for x in r] + list(
@@ -264,6 +408,7 @@ def phase_main_path(dev):
 
 
 _CATEGORIES = (  # first match wins; kernel names lower-cased
+    ("sinkhorn_solve", ("sinkhorn_solve_kernel",)),
     ("K1 softmin", ("softmin_kernel",)),
     ("K2 hist3", ("hist3_kernel",)),
     ("K3 lut_apply3", ("lut_apply3_kernel",)),
@@ -290,8 +435,10 @@ def _category(name: str) -> str:
 
 def phase_profile(dev, steps: int = 3):
     """Device time of one flagship search step by kernel category, from
-    torch.profiler over ``steps`` steps after two warm-up steps, and the
-    device's idle share (1 - kernel time / wall time)."""
+    torch.profiler over ``steps`` steps after two warm-up steps, the
+    device's idle share (1 - kernel time / wall time), and the stream
+    synchronizations and host-to-device copies per step, in all and inside
+    the rewards stage."""
     from torch.profiler import ProfilerActivity, profile
     from aadg_tpu_torch.config import load_config
     from aadg_tpu_torch.data.datasets import build_dataset, load_train_arrays
@@ -350,6 +497,7 @@ def phase_profile(dev, steps: int = 3):
     busy = sum(per_cat.values())
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
+    syncs = sync_counts(prof, steps)
     cats = sorted(per_cat.items(), key=lambda kv: -kv[1])
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     log(f"[profile] search step: wall {wall_ms:.1f} ms, device busy "
@@ -360,8 +508,32 @@ def phase_profile(dev, steps: int = 3):
     log("[profile] stages (host ms / device-span ms per step): " + ", ".join(
         f"{k} {v.get('host_ms', 0.0):.2f}/{v.get('device_ms', 0.0):.2f}"
         for k, v in stages.items()))
+    log("[profile] per step: " + ", ".join(
+        f"{k} {v:g}" for k, v in syncs.items()))
     return {"wall_ms": wall_ms, "busy_ms": busy, "categories": dict(cats),
-            "stages": stages}
+            "stages": stages, "syncs": syncs}
+
+
+def sync_counts(prof, steps: int) -> dict:
+    """cudaStreamSynchronize calls and host-to-device copies per step, and
+    the synchronizing or copying runtime calls issued inside the host
+    ranges of search/rewards."""
+    events = prof.events()
+    rewards = [(e.time_range.start, e.time_range.end) for e in events
+               if e.name == "search/rewards"
+               and e.device_type == torch.autograd.DeviceType.CPU]
+    out = {"cudaStreamSynchronize": 0, "Memcpy HtoD": 0,
+           "in rewards: cudaStreamSynchronize": 0,
+           "in rewards: cudaMemcpyAsync": 0}
+    for e in events:
+        if e.name == "cudaStreamSynchronize":
+            out["cudaStreamSynchronize"] += 1
+        elif e.name.startswith("Memcpy HtoD"):
+            out["Memcpy HtoD"] += 1
+        if e.name in ("cudaStreamSynchronize", "cudaMemcpyAsync") and any(
+                lo <= e.time_range.start <= hi for lo, hi in rewards):
+            out["in rewards: " + e.name] += 1
+    return {k: v / steps for k, v in out.items()}
 
 
 def main() -> int:

@@ -1,12 +1,14 @@
-"""K1-K3 (the hand-written CUDA kernels) against their plain PyTorch
-versions.
+"""The hand-written CUDA kernels (K1 softmin, sinkhorn_solve, K2 hist3, K3
+lut_apply3) against their plain PyTorch versions.
 
 The ``gpu`` tests build the kernels with nvcc and run them on the card;
 without a card they skip (the decision is made inside each test). This
 file imports no JAX, so on a machine with an H100 and no JAX it runs as
-``python -m pytest --noconftest -m gpu tests/test_torch_port_kernels.py``. K2 and K3 must be exact; K1 agrees within rtol 1e-5 /
-atol 1e-6 (f32 FMA dot products summed in another order than cuBLAS).
-The CPU tests check the wrappers' own contract.
+``python -m pytest --noconftest -p no:cacheprovider -m gpu
+tests/test_torch_port_kernels.py``. K2 and K3 must be exact; K1 and
+sinkhorn_solve agree within rtol 1e-5 / atol 1e-6 (f32 FMA dot products
+and sums of exponentials taken in another order than cuBLAS and torch's
+reductions). The CPU tests check the wrappers' own contract.
 """
 
 import pytest
@@ -83,6 +85,70 @@ def test_wrappers_count_launches(cuda):
     after = (lut.hist3.launches, lut.lut_apply3.launches,
              sinkhorn.softmin.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+def _clouds(gen, p, n, m, d, weighted, device):
+    x = torch.randn(p, n, d, generator=gen)
+    y = torch.randn(p, m, d, generator=gen) + 0.3
+    w = [torch.rand(p, k, generator=gen) + 0.5 if weighted else None
+         for k in (n, m)]
+    move = lambda t: None if t is None else t.to(device).contiguous()
+    return move(x), move(y), move(w[0]), move(w[1])
+
+
+SOLVE_SHAPES = [(18, 8, 8, 128, False), (4, 5, 9, 128, True),
+                (2, sinkhorn.SOLVE_MAX_POINTS, sinkhorn.SOLVE_MAX_POINTS,
+                 sinkhorn.SOLVE_MAX_DIM, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("debias", [True, False])
+@pytest.mark.parametrize("p,n,m,d,weighted", SOLVE_SHAPES)
+def test_sinkhorn_solve_kernel_matches_plain(cuda, p, n, m, d, weighted,
+                                             debias):
+    """The search step's 18 divergences of 8 vs 8 points, a ragged weighted
+    case and the size limit."""
+    gen = torch.Generator().manual_seed(3)
+    x, y, wx, wy = _clouds(gen, p, n, m, d, weighted, cuda)
+    eps = sinkhorn._eps_schedule(2.0, 0.05, 0.5, 5)
+    out = sinkhorn.sinkhorn_solve(x, y, eps, wx, wy, debias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, sinkhorn.sinkhorn_solve_plain(x, y, eps, wx, wy, debias),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_sinkhorn_solve_self_divergence_zero(cuda):
+    gen = torch.Generator().manual_seed(4)
+    x, _, wx, _ = _clouds(gen, 6, 8, 8, 128, True, cuda)
+    eps = sinkhorn._eps_schedule(2.0, 0.05, 0.5, 5)
+    out = sinkhorn.sinkhorn_solve(x, x, eps, wx, wx)
+    torch.cuda.synchronize()
+    assert float(out.abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_pairwise_domain_ot_is_one_launch(cuda):
+    """The rewards' call at the flagship shape (M=6, D=3, B=8, F=128):
+    one sinkhorn_solve launch, no K1 launch."""
+    feats = torch.randn(6, 3, 8, 128, generator=torch.Generator().manual_seed(5))
+    before = (sinkhorn.sinkhorn_solve.launches, sinkhorn.softmin.launches)
+    out = sinkhorn.pairwise_domain_ot(feats.to(cuda))
+    after = (sinkhorn.sinkhorn_solve.launches, sinkhorn.softmin.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 0]
+    torch.testing.assert_close(out.cpu(), sinkhorn.pairwise_domain_ot(feats),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_cpu_sinkhorn_solve_takes_the_plain_version():
+    gen = torch.Generator().manual_seed(6)
+    x, y, wx, wy = _clouds(gen, 2, 5, 9, 16, True, "cpu")
+    eps = sinkhorn._eps_schedule(2.0, 0.05, 0.5, 5)
+    before = sinkhorn.sinkhorn_solve.launches
+    assert torch.equal(sinkhorn.sinkhorn_solve(x, y, eps, wx, wy),
+                       sinkhorn.sinkhorn_solve_plain(x, y, eps, wx, wy))
+    assert sinkhorn.sinkhorn_solve.launches == before
 
 
 def test_cpu_tensors_take_the_plain_version():

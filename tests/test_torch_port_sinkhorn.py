@@ -109,3 +109,89 @@ def test_softmin_wrapper_rejects_bad_input():
         tsk.softmin(0.1, x, torch.zeros(1, 4, 7), torch.zeros(1, 4))
     with pytest.raises(ValueError):
         tsk.softmin(0.1, x.double(), x.double(), torch.zeros(1, 4))
+
+
+def test_pairwise_domain_ot_full_reward_shape():
+    """The search step's whole reward call: features (M=6, D=3, B=8,
+    F=128), 18 divergences."""
+    rng = np.random.default_rng(5)
+    feats = rng.normal(size=(6, 3, 8, 128)).astype(np.float32)
+    feats[:, 2] += 0.3
+    t = tsk.pairwise_domain_ot(torch.from_numpy(feats)).numpy()
+    j = np.array([float(jsk.pairwise_domain_ot(jnp.asarray(feats[i])))
+                  for i in range(6)])
+    assert t.shape == (6,)
+    np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,m,weighted,debias", [(8, 8, False, True),
+                                                 (8, 8, False, False),
+                                                 (5, 9, True, True),
+                                                 (7, 4, True, False)])
+def test_sinkhorn_solve_plain_vs_jax(n, m, weighted, debias):
+    """The plain version of the one-launch solve, on raw clouds of 128
+    features, against the dense JAX divergence."""
+    rng = np.random.default_rng(6 + n + m)
+    p = 2
+    x = rng.normal(size=(p, n, 128)).astype(np.float32)
+    y = (rng.normal(size=(p, m, 128)) + 0.3).astype(np.float32)
+    wx = rng.uniform(0.5, 2.0, (p, n)).astype(np.float32) if weighted else None
+    wy = rng.uniform(0.5, 2.0, (p, m)).astype(np.float32) if weighted else None
+    opt = lambda a: None if a is None else torch.from_numpy(a)
+    t = tsk.sinkhorn_solve_plain(
+        torch.from_numpy(x), torch.from_numpy(y),
+        tsk._eps_schedule(2.0, 0.05, 0.5, 5), opt(wx), opt(wy),
+        debias).numpy()
+    j = np.array([float(jsk.sinkhorn_divergence(
+        jnp.asarray(x[i]), jnp.asarray(y[i]),
+        None if wx is None else jnp.asarray(wx[i]),
+        None if wy is None else jnp.asarray(wy[i]), debias=debias))
+        for i in range(p)])
+    np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("device,n,m,d,route", [
+    ("cpu", 8, 8, 128, "plain"),
+    ("cpu", 4096, 4096, 128, "plain"),
+    ("cuda", 8, 8, 128, "solve"),
+    ("cuda", 5, 9, 3, "solve"),
+    ("cuda", tsk.SOLVE_MAX_POINTS, tsk.SOLVE_MAX_POINTS, tsk.SOLVE_MAX_DIM,
+     "solve"),
+    ("cuda", tsk.SOLVE_MAX_POINTS + 1, 8, 128, "softmin"),
+    ("cuda", 8, tsk.SOLVE_MAX_POINTS + 1, 128, "softmin"),
+    ("cuda", 8, 8, tsk.SOLVE_MAX_DIM + 1, "softmin"),
+    ("cuda", 512, 512, 128, "softmin")])
+def test_divergence_route(device, n, m, d, route):
+    assert tsk.divergence_route(device, n, m, d) == route
+
+
+def test_solve_limits_fit_shared_memory():
+    """The limits follow from one block's 227 KB: the largest cloud fits at
+    the widest feature, one more point does not, and L=64 fits at D=128."""
+    lim, dim = tsk.SOLVE_MAX_POINTS, tsk.SOLVE_MAX_DIM
+    assert tsk.solve_smem_bytes(lim, lim, dim) <= tsk.SOLVE_SMEM_BYTES
+    assert tsk.solve_smem_bytes(lim + 1, lim + 1, dim) > tsk.SOLVE_SMEM_BYTES
+    assert lim >= 64
+    assert tsk.solve_smem_bytes(64, 64, 128) <= tsk.SOLVE_SMEM_BYTES
+
+
+def test_sinkhorn_solve_rejects_bad_input():
+    eps = tsk._eps_schedule(2.0, 0.05, 0.5, 5)
+    x = torch.zeros(2, 4, 8)
+    lim = tsk.SOLVE_MAX_POINTS
+    bad = [
+        (x.double(), x.double(), None, None),                 # f64
+        (x, x, torch.ones(2, 4, dtype=torch.float64), None),  # f64 weights
+        (torch.zeros(2, 8, 4).transpose(1, 2), x, None, None),  # strided
+        (x, x, torch.ones(4, 2).t(), None),                   # strided weights
+        (x, torch.zeros(2, 4, 7), None, None),                # D mismatch
+        (x, x, None, torch.ones(2, 5)),                       # weight shape
+        (torch.zeros(1, lim + 1, 8), torch.zeros(1, 4, 8), None, None),
+        (torch.zeros(1, 4, tsk.SOLVE_MAX_DIM + 1),
+         torch.zeros(1, 4, tsk.SOLVE_MAX_DIM + 1), None, None),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tsk.sinkhorn_solve(args[0], args[1], eps, args[2], args[3])
+    with pytest.raises(ValueError):
+        tsk.sinkhorn_solve(x, x, [])
