@@ -1,7 +1,7 @@
 """Host-side datasets: the hermetic synthetic optic pools.
 
 The port's copy of the synthetic half of ``aadg_tpu/data/datasets.py``
-(:141-273), with the same numpy generator calls so the pools are identical
+(:141-288), with the same numpy generator calls so the pools are identical
 byte for byte. The Fundus and RVS disk readers are not ported yet.
 """
 
@@ -109,3 +109,18 @@ def load_train_arrays(dataset):
         counts.append(n)
     return (np.stack(imgs), np.stack(labels),
             np.asarray(counts, np.int32))
+
+
+def load_test_arrays(dataset):
+    """Flatten all test-domain samples: images (N,H,W,3), labels (N,H,W),
+    rois (N,H,W) or None, names."""
+    imgs, labels, rois, names = [], [], [], []
+    has_roi = all(d.rois is not None for d in dataset.domains)
+    for d in dataset.domains:
+        imgs.append(d.images)
+        labels.append(d.labels)
+        names.extend(d.names)
+        if has_roi:
+            rois.append(d.rois)
+    return (np.concatenate(imgs), np.concatenate(labels),
+            np.concatenate(rois) if has_roi else None, names)

@@ -3,29 +3,35 @@
 Per epoch: warmup epochs run the pretrain step; at warmup end the momentum
 discriminator copies the online one; search epochs sample M policies from
 the LSTM controller, run the search steps, sum and normalize the rewards,
-EMA-update the momentum branch and update the controller. Each epoch logs
-a line like the JAX loop's, and the op/magnitude probability trajectories
-are saved as .npy in the run directory.
+EMA-update the momentum branch and update the controller. After every
+epoch the model is validated on the held-out domain and the best average
+dice is tracked; every ``TPU.CHECKPOINT_FREQ`` search epochs a checkpoint
+is written. ``TPU.AUTO_RESUME`` continues the newest unfinished run of the
+same config. The run ends with ``final_model_state.pt``,
+``final_controller_state.pt``, the op/magnitude probability trajectories
+and ``final_result.json``.
 
-Not ported yet (ROADMAP queue 1): validation and best-model tracking,
-checkpoints and auto-resume, data parallelism, profiling.
+Not ported yet (ROADMAP queue 1): data parallelism, profiling.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..data.datasets import build_dataset, load_train_arrays
-from ..data.stores import draw_batch_indices, gather_batch, make_train_store
+from ..data.datasets import build_dataset, load_test_arrays, load_train_arrays
+from ..data.stores import (draw_batch_indices, gather_batch, make_test_store,
+                           make_train_store)
 from ..losses import normalize_rewards
 from ..models.controller import policies_to_tensor
 from ..models.discriminator import momentum_update, synchronize_parameters
+from ..utils.checkpoint import (find_resume_checkpoint, load_checkpoint,
+                                save_array, save_checkpoint, save_json)
+from ..utils.logging import run_logging
+from .evaluate import validate
 from .rl import make_controller_update
 from .state import build_entities, init_state
 from .steps import (draw_pretrain, draw_search, make_pretrain_step,
@@ -40,23 +46,6 @@ def set_precision_flags() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def create_logger(cfg, cfg_path: str):
-    """Run directory ``<OUTPUT_DIR>/<dataset>/<cfg>_<time>/`` with a
-    ``train.log`` file logger that also prints."""
-    name = f"{Path(cfg_path).stem}_{time.strftime('%Y-%m-%d-%H-%M-%S')}"
-    out_dir = Path(cfg.OUTPUT_DIR) / cfg.DATASET.NAME / name
-    out_dir.mkdir(parents=True, exist_ok=True)
-    logger = logging.getLogger(f"aadg_tpu_torch.{name}.{os.getpid()}")
-    logger.setLevel(logging.INFO)
-    logger.propagate = False
-    if not logger.handlers:
-        fh = logging.FileHandler(out_dir / "train.log")
-        fh.setFormatter(logging.Formatter("%(asctime)-15s %(message)s"))
-        logger.addHandler(fh)
-        logger.addHandler(logging.StreamHandler())
-    return logger, str(out_dir)
-
-
 def describe_policies(policies: np.ndarray, op_names, spec) -> list:
     """[[(op_name, mag/(num_mags-1)) x L] x Q] x M."""
     out = []
@@ -68,33 +57,82 @@ def describe_policies(policies: np.ndarray, op_names, spec) -> list:
     return out
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def run_search(cfg, cfg_path: str, device="cuda"):
-    """Run the search on ``device``. Returns a summary dict: the run
-    directory, per-epoch records (kind, seconds, metrics, rewards) and the
-    wall time of every search step."""
-    device = torch.device(device)
-    set_precision_flags()
-    logger, out_dir = create_logger(cfg, cfg_path)
-    try:
-        return _search(cfg, device, logger, out_dir)
-    finally:
-        for handler in list(logger.handlers):
-            handler.close()
-            logger.removeHandler(handler)
-
-
-def _search(cfg, device, logger, out_dir):
-    logger.info(str(cfg))
-
+def load_stores(cfg, device):
+    """(train store, test store, steps per epoch)."""
     store = make_train_store(*load_train_arrays(build_dataset(cfg, "train")),
                              device)
+    test_store = make_test_store(
+        *load_test_arrays(build_dataset(cfg, "test")),
+        batch_size=int(cfg.TEST.BATCH_SIZE), device=device)
+    steps = (int(cfg.TPU.STEPS_PER_EPOCH)
+             or store.steps_per_epoch(int(cfg.TRAIN.BATCH_SIZE)))
+    return store, test_store, steps
+
+
+def try_resume(cfg, out_dir, logger):
+    """The checkpoint dict to resume from under ``TPU.AUTO_RESUME``, or
+    None; a completed run (its epoch >= END_EPOCH) starts fresh."""
+    if not cfg.TPU.AUTO_RESUME:
+        return None
+    ckpt = find_resume_checkpoint(out_dir)
+    if not ckpt:
+        return None
+    state = load_checkpoint(ckpt)
+    if int(state["epoch"]) >= int(cfg.TRAIN.END_EPOCH):
+        logger.warning(
+            f"auto-resume: {ckpt} is a COMPLETED run (epoch "
+            f"{int(state['epoch'])} >= END_EPOCH {cfg.TRAIN.END_EPOCH}); "
+            "starting fresh instead")
+        return None
+    logger.info(f"resumed from {ckpt} at epoch {int(state['epoch'])}")
+    return state
+
+
+def validate_and_track(ent, sd, test_store, cfg, epoch, best, logger,
+                       writer, with_hd: bool):
+    """Validate after ``epoch``, log it, and update ``best`` (a dict with
+    ``dsc`` and ``metric``) in place. Returns (validation dict, is_best)."""
+    vm = validate(ent, sd.model, test_store, int(cfg.TEST.BATCH_SIZE))
+    dsc = (vm["cup_dsc"] + vm["disc_dsc"]) / 2
+    current = {"epoch": epoch + 1, "avg_dsc": dsc, "cup_dsc": vm["cup_dsc"],
+               "disc_dsc": vm["disc_dsc"]}
+    if with_hd:
+        logger.info(
+            "Test Epoch {} dsc@cup:{cup_dsc:.4f} dsc@disc:{disc_dsc:.4f}"
+            " HD@cup:{cup_hd:.4f} HD@disc:{disc_hd:.4f}".format(epoch, **vm))
+        current.update(avg_hd=(vm["cup_hd"] + vm["disc_hd"]) / 2,
+                       cup_hd=vm["cup_hd"], disc_hd=vm["disc_hd"])
+    else:
+        logger.info("Test Epoch {} ".format(epoch)
+                    + " ".join(f"{k}:{v:.4f}" for k, v in vm.items()))
+    for k, v in vm.items():
+        writer.add_scalar(f"valid_{k}", v, epoch)
+    is_best = dsc > best["dsc"]
+    if is_best:
+        best["dsc"] = dsc
+        best["metric"] = current
+    return vm, is_best
+
+
+def run_search(cfg, cfg_path: str, device="cuda"):
+    """Run the search on ``device``. Returns a summary dict: the run
+    directory, per-epoch records (kind, seconds, metrics, validation,
+    rewards), the wall time of every search step and the best metric."""
+    device = torch.device(device)
+    set_precision_flags()
+    with run_logging(cfg, cfg_path, "train") as (logger, out_dir, writer):
+        return _search(cfg, device, logger, out_dir, writer)
+
+
+def _search(cfg, device, logger, out_dir, writer):
+    logger.info(str(cfg))
+    store, test_store, steps = load_stores(cfg, device)
     batch_size = int(cfg.TRAIN.BATCH_SIZE)
-    steps = int(cfg.TPU.STEPS_PER_EPOCH) or store.steps_per_epoch(batch_size)
     logger.info(f"steps/epoch: {steps}, domains: {store.n_domains}, "
                 f"pool sizes: {store.counts.tolist()}, device: {device}")
 
@@ -110,10 +148,23 @@ def _search(cfg, device, logger, out_dir):
     ctrl_update = make_controller_update(cfg.CONTROLLER.LOSS,
                                          float(cfg.CONTROLLER.PENALTY))
 
+    begin = int(cfg.TRAIN.BEGIN_EPOCH)
+    best = {"dsc": 0.0, "metric": {
+        "epoch": 0, "avg_dsc": 0, "cup_dsc": 0, "disc_dsc": 0, "avg_hd": 0,
+        "cup_hd": 0, "disc_hd": 0}}
+    resumed = try_resume(cfg, out_dir, logger)
+    if resumed is not None:
+        sd.load_state_dict(resumed["sd"])
+        cs.load_state_dict(resumed["cs"])
+        gen.set_state(resumed["generator"])
+        begin = int(resumed["epoch"])
+        best = {"dsc": float(resumed["best_dsc"]),
+                "metric": resumed["best_metric"]}
+
     n0 = batch_size * store.n_domains
     warmup = int(cfg.TRAIN.WARMUP_EPOCH)
     mag_traj, op_traj, records, step_seconds = [], [], [], []
-    for epoch in range(int(cfg.TRAIN.BEGIN_EPOCH), int(cfg.TRAIN.END_EPOCH)):
+    for epoch in range(begin, int(cfg.TRAIN.END_EPOCH)):
         t0 = time.perf_counter()
         ms_list, rs = [], []
         if epoch < warmup:
@@ -131,13 +182,13 @@ def _search(cfg, device, logger, out_dir):
                     cs.controller.sample(M, gen)
             ptens = policies_to_tensor(policies, ent.ctrl_spec)
             for _ in range(steps):
-                _sync(device)
+                sync(device)
                 ts = time.perf_counter()
                 batch = gather_batch(store, draw_batch_indices(
                     store, batch_size, gen))
                 ms, r = srch_step(sd, batch, ptens,
                                   draw_search(ent, n0, M, h, w, gen))
-                _sync(device)
+                sync(device)
                 step_seconds.append(time.perf_counter() - ts)
                 ms_list.append(ms)
                 rs.append(r)
@@ -155,26 +206,53 @@ def _search(cfg, device, logger, out_dir):
         record = {"epoch": epoch, "kind": "warmup" if epoch < warmup
                   else "search", "seconds": dt, "metrics": ms}
         if epoch >= warmup:
-            pol = policies.cpu().numpy()
             logger.info("policies: " + str(describe_policies(
-                pol, ent.op_names, ent.ctrl_spec)))
+                policies.cpu().numpy(), ent.op_names, ent.ctrl_spec)))
+            for k, v in ms.items():
+                writer.add_scalar(f"train_{k}", v, epoch)
+
+        t0 = time.perf_counter()
+        vm, is_best = validate_and_track(ent, sd, test_store, cfg, epoch,
+                                         best, logger, writer, with_hd=True)
+        record.update(valid=vm, valid_seconds=time.perf_counter() - t0)
+        logger.info(f"=> best: {is_best}")
+
+        if epoch >= warmup:
             cstats = {k: float(v) for k, v in ctrl_stats.items()}
             logger.info(
                 "Train Epoch {}: controller loss:{:.4f} score loss:{:.4f} "
                 "entropy penalty:{:.4f}".format(
                     epoch, cstats["controller_loss"], cstats["score_loss"],
                     cstats["entropy_penalty"]))
+            for k, v in cstats.items():
+                writer.add_scalar(k, v, epoch)
             mag_traj.append(mag_probs.cpu().numpy())
             op_traj.append(op_probs.cpu().numpy())
             record.update(rewards=rewards.cpu().tolist(),
                           raw_rewards=torch.stack(rs).cpu().tolist(),
                           controller=cstats)
+            if (epoch - warmup) % max(1, int(cfg.TPU.CHECKPOINT_FREQ)) == 0:
+                t0 = time.perf_counter()
+                save_checkpoint(
+                    {"sd": sd.state_dict(), "cs": cs.state_dict(),
+                     "epoch": epoch + 1, "best_dsc": best["dsc"],
+                     "best_metric": dict(best["metric"]),
+                     "generator": gen.get_state()},
+                    is_best, out_dir, f"checkpoint_{epoch}.pt")
+                record["checkpoint_seconds"] = time.perf_counter() - t0
         records.append(record)
 
-    np.save(os.path.join(out_dir, "mag_probs_trajectory.npy"),
-            np.array(mag_traj))
-    np.save(os.path.join(out_dir, "op_probs_trajectory.npy"),
-            np.array(op_traj))
+    save_checkpoint({"model": sd.model.state_dict()}, False, out_dir,
+                    "final_model_state.pt", update_latest=False)
+    save_checkpoint({"controller": cs.controller.state_dict()}, False,
+                    out_dir, "final_controller_state.pt",
+                    update_latest=False)
+    save_array(np.array(mag_traj),
+               os.path.join(out_dir, "mag_probs_trajectory.npy"))
+    save_array(np.array(op_traj),
+               os.path.join(out_dir, "op_probs_trajectory.npy"))
+    logger.info("Best: " + str(best["metric"]))
+    save_json(best["metric"], os.path.join(out_dir, "final_result.json"))
     return {"out_dir": out_dir, "epochs": records,
             "search_step_seconds": step_seconds, "steps_per_epoch": steps,
-            "images_per_search_step": n0 * M}
+            "images_per_search_step": n0 * M, "best_metric": best["metric"]}

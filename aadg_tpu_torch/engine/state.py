@@ -4,11 +4,13 @@
 Where the JAX package keeps parameters in pytrees that flow through pure
 steps, here the modules own their parameters and the optimizers update
 them in place. ``Entities`` holds what a run builds once from the config;
-``init_state`` makes the seeded modules and their optimizers.
+``init_state`` makes the seeded modules and their optimizers. Each state
+has ``state_dict``/``load_state_dict`` for checkpoints.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List, NamedTuple
 
 import numpy as np
@@ -45,6 +47,13 @@ class ScheduledAdam:
         self.opt.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        return {"opt": self.opt.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state["opt"])
+        self.count = int(state["count"])
+
 
 def torch_adam(params, lr, wd: float = 0.0) -> ScheduledAdam:
     """Adam with torch semantics; ``lr`` is a float or a schedule."""
@@ -56,6 +65,16 @@ def multistep_schedule(base_lr: float, milestone_step: int,
                        gamma: float = 0.1) -> Callable[[int], float]:
     """MultiStepLR([milestone], gamma) counted in steps."""
     return lambda step: base_lr * (gamma if step >= milestone_step else 1.0)
+
+
+def cosine_schedule(base_lr: float,
+                    total_steps: int) -> Callable[[int], float]:
+    """CosineAnnealingLR(T_max=total_steps), eta_min 0, counted in steps;
+    held at 0 past the end."""
+    def schedule(step: int) -> float:
+        t = min(step, total_steps) / max(total_steps, 1)
+        return base_lr * 0.5 * (1.0 + math.cos(math.pi * t))
+    return schedule
 
 
 def resolve_search_space(cfg: CfgNode, logger=None) -> List[str]:
@@ -84,10 +103,11 @@ class Entities(NamedTuple):
     n_domains: int
     num_classes: int
     dis_name: str
+    dataset_name: str         # "optic" or "rvs"
     feature_dim: int
     lr: float
     wd: float
-    warmup_steps: int
+    model_schedule: Callable  # step -> the model's learning rate
     device: torch.device
     compute_dtype: torch.dtype
 
@@ -103,18 +123,38 @@ class SegDisState(NamedTuple):
     seg_opt: ScheduledAdam
     dis_opt: ScheduledAdam
 
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(),
+                "disc": self.disc.state_dict(),
+                "seg_opt": self.seg_opt.state_dict(),
+                "dis_opt": self.dis_opt.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.disc.load_state_dict(state["disc"])
+        self.seg_opt.load_state_dict(state["seg_opt"])
+        self.dis_opt.load_state_dict(state["dis_opt"])
+
 
 class CtrlState(NamedTuple):
     controller: Controller
     opt: ScheduledAdam
 
+    def state_dict(self) -> dict:
+        return {"controller": self.controller.state_dict(),
+                "opt": self.opt.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.controller.load_state_dict(state["controller"])
+        self.opt.load_state_dict(state["opt"])
+
 
 def build_entities(cfg: CfgNode, mode: str = "search",
-                   steps_per_epoch: int = 1, device="cpu",
+                   steps_per_epoch: int = 1, device="cuda",
                    logger=None) -> Entities:
-    if mode != "search":
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP queue 1, item 3)")
+    """What a run builds once from the config. The model's schedule is
+    MultiStepLR (x0.1 at the end of warmup) in search mode and cosine over
+    ``END_EPOCH * steps_per_epoch`` steps otherwise."""
     if cfg.MODEL.NAME != "deeplabv3+" or cfg.MODEL.BACKBONE != "mobilenet_v2":
         raise NotImplementedError(
             f"model {cfg.MODEL.NAME}/{cfg.MODEL.BACKBONE} is not ported yet "
@@ -131,13 +171,19 @@ def build_entities(cfg: CfgNode, mode: str = "search",
         op_names, spec.Q, spec.L, spec.num_mags)
     dtype = {"bfloat16": torch.bfloat16,
              "float32": torch.float32}[cfg.TPU.COMPUTE_DTYPE]
+    lr = float(cfg.TRAIN.LR)
+    if mode == "search":
+        schedule = multistep_schedule(
+            lr, int(cfg.TRAIN.WARMUP_EPOCH) * steps_per_epoch, 0.1)
+    else:
+        schedule = cosine_schedule(
+            lr, int(cfg.TRAIN.END_EPOCH) * steps_per_epoch)
     return Entities(
         ctrl_spec=spec, transform=transform, scale_range=scale_range,
         multi_policy=multi_policy, op_names=op_names, n_domains=3,
-        num_classes=2, dis_name=cfg.DISCRIMINATOR.NAME,
-        feature_dim=DeepLabV3Plus.feature_dim, lr=float(cfg.TRAIN.LR),
-        wd=float(cfg.TRAIN.WD),
-        warmup_steps=int(cfg.TRAIN.WARMUP_EPOCH) * steps_per_epoch,
+        num_classes=2, dis_name=cfg.DISCRIMINATOR.NAME, dataset_name=base,
+        feature_dim=DeepLabV3Plus.feature_dim, lr=lr,
+        wd=float(cfg.TRAIN.WD), model_schedule=schedule,
         device=torch.device(device), compute_dtype=dtype)
 
 
@@ -157,8 +203,7 @@ def init_state(ent: Entities, seed: int):
     controller.to(ent.device)
     sd = SegDisState(
         model=model, disc=disc,
-        seg_opt=torch_adam(model.parameters(), multistep_schedule(
-            ent.lr, ent.warmup_steps, 0.1), ent.wd),
+        seg_opt=torch_adam(model.parameters(), ent.model_schedule, ent.wd),
         dis_opt=torch_adam(disc.online.parameters(), ent.lr))
     cs = CtrlState(controller, torch_adam(controller.parameters(), 0.00035))
     return sd, cs

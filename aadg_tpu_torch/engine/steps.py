@@ -1,5 +1,6 @@
-"""Warmup and search steps (port of ``aadg_tpu/engine/steps.py``:
-``make_pretrain_step`` :106-174 and ``make_search_step`` :208-319).
+"""Warmup, train and search steps (port of ``aadg_tpu/engine/steps.py``:
+``make_pretrain_step`` :106-174, ``make_autoaug_train_step`` :177-205 and
+``make_search_step`` :208-319).
 
 A step takes the state, a raw batch and its draws, updates the modules in
 place and returns its metrics as device tensors (no host sync). Gradients
@@ -7,9 +8,9 @@ stay in ``.grad`` after the step. The order of operations is the JAX
 step's: the augmented copies take their labels from the original masks,
 copy (b, d, m) is row (b*D + d)*M + m, the reward features are arranged
 (M, D, B, F), and the momentum branch reads the discriminator before its
-update. The search step's stages are named profiler ranges
-(``search/augment`` ... ``search/optimizer``), which cost nothing unless
-``torch.profiler`` is recording.
+update. The steps' stages are named profiler ranges (``search/augment``
+... ``search/optimizer``, ``train/augment`` ... ``train/optimizer``),
+which cost nothing unless ``torch.profiler`` is recording.
 """
 
 from __future__ import annotations
@@ -37,6 +38,12 @@ class SearchDraws(NamedTuple):
     policy: PolicyDraw     # (B*D, M)
     crop: ScaleCropDraw    # per augmented copy (B*D*M)
     soft: torch.Tensor     # (B*D, n_domains)
+
+
+class TrainDraws(NamedTuple):
+    coin: torch.Tensor     # () uniform: the augmented batch is used if > 0.5
+    policy: PolicyDraw     # (B*D, 1)
+    crop: ScaleCropDraw    # per sample (B*D)
 
 
 def draw_pretrain(ent: Entities, n0: int,
@@ -76,24 +83,74 @@ def _forward_seg(ent: Entities, sd: SegDisState, x, y):
     return seg_soft, bce_loss(seg_soft, y), feat
 
 
-def make_pretrain_step(ent: Entities):
-    """Warmup step: the un-augmented batch; the segmentation model trains
-    with BCE, the online discriminator with soft CE on soft domain labels."""
+def draw_train(ent: Entities, n0: int, h: int, w: int,
+               generator: torch.Generator) -> TrainDraws:
+    return TrainDraws(
+        torch.rand((), generator=generator, device=generator.device),
+        draw_policy(n0, 1, ent.ctrl_spec.Q, ent.ctrl_spec.L, h, w,
+                    generator),
+        draw_scale_crop(n0, ent.scale_range, generator))
 
-    def step(sd: SegDisState, batch, draws: PretrainDraws):
+
+def make_pretrain_step(ent: Entities, step_disc: bool = True):
+    """Warmup step: the un-augmented batch; the segmentation model trains
+    with BCE, the online discriminator with soft CE on soft domain labels.
+
+    ``step_disc=False`` is the plain train mode's step: the discriminator
+    is neither run nor stepped (its parameters, gradients and optimizer
+    stay untouched), the draws need only ``crop``, and the metrics have no
+    ``dis_loss``."""
+
+    stage = "pretrain" if step_disc else "train"
+
+    def step(sd: SegDisState, batch, draws):
         imgs, masks, dcs = _flatten(batch)
-        x, y = ent.transform(imgs, masks, draws.crop)
-        dc_soft = soft_domain_label(dcs, ent.n_domains, draws.soft)
-        sd.model.train()
-        sd.seg_opt.zero_grad()
-        sd.dis_opt.zero_grad()
-        seg_soft, seg_loss, feat = _forward_seg(ent, sd, x, y)
-        dis_loss = soft_cross_entropy(sd.disc(feat.detach()), dc_soft)
-        (seg_loss + dis_loss).backward()
-        sd.seg_opt.step()
-        sd.dis_opt.step()
-        return {"seg_loss": seg_loss.detach(), "dis_loss": dis_loss.detach(),
-                **_seg_metrics(seg_soft.detach(), y)}
+        with record_function(f"{stage}/forward_backward"):
+            x, y = ent.transform(imgs, masks, draws.crop)
+            sd.model.train()
+            sd.seg_opt.zero_grad()
+            seg_soft, seg_loss, feat = _forward_seg(ent, sd, x, y)
+            metrics = {"seg_loss": seg_loss.detach()}
+            if step_disc:
+                sd.dis_opt.zero_grad()
+                dc_soft = soft_domain_label(dcs, ent.n_domains, draws.soft)
+                dis_loss = soft_cross_entropy(sd.disc(feat.detach()),
+                                              dc_soft)
+                (seg_loss + dis_loss).backward()
+                metrics["dis_loss"] = dis_loss.detach()
+            else:
+                seg_loss.backward()
+        with record_function(f"{stage}/optimizer"):
+            sd.seg_opt.step()
+            if step_disc:
+                sd.dis_opt.step()
+        return {**metrics, **_seg_metrics(seg_soft.detach(), y)}
+
+    return step
+
+
+def make_autoaug_train_step(ent: Entities):
+    """Train-mode step with the reference's ``autoaugment`` behaviour
+    (``aadg_tpu/engine/steps.py:177-205``): every sample gets sub-policy
+    ``draws.policy.q`` of the one policy (1, Q, L, 2), then the whole batch
+    is the augmented copy where ``draws.coin > 0.5`` and the raw batch
+    otherwise. The augmented copy is always computed and the choice is a
+    ``torch.where`` on the device, so the step never waits on the host.
+    The rest is ``make_pretrain_step(ent, step_disc=False)``."""
+    base = make_pretrain_step(ent, step_disc=False)
+
+    def step(sd: SegDisState, batch, policies: torch.Tensor,
+             draws: TrainDraws):
+        imgs, masks, dcs = batch
+        n0 = imgs.shape[0] * imgs.shape[1]
+        with record_function("train/augment"):
+            aug_i, aug_m = ent.multi_policy(
+                imgs.reshape(n0, *imgs.shape[2:]),
+                masks.reshape(n0, *masks.shape[2:]), policies, draws.policy)
+            use_aug = draws.coin > 0.5
+            imgs = torch.where(use_aug, aug_i.reshape(imgs.shape), imgs)
+            masks = torch.where(use_aug, aug_m.reshape(masks.shape), masks)
+        return base(sd, (imgs, masks, dcs), draws)
 
     return step
 

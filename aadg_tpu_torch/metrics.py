@@ -1,8 +1,12 @@
-"""Train-loop metric (port of ``aadg_tpu/metrics.py::samplewise_f1``).
-hd95 and the evaluation metrics wait for the evaluation slice."""
+"""Optic metrics (port of ``aadg_tpu/metrics.py``): ``samplewise_f1``
+(:29-53) and ``dice_coef`` (:56-63) in torch, and the hd95 family
+(:128-162), which runs on the host with numpy and scipy as in the
+reference. The rvs metrics (AUROC, accuracy, specificity, sensitivity)
+wait for the rvs task."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,3 +32,50 @@ def samplewise_f1(pred: torch.Tensor, target: torch.Tensor,
 
     return torch.stack([per_class(1.0 - pred, 1.0 - target),
                         per_class(pred, target)])
+
+
+def dice_coef(pred: torch.Tensor, target: torch.Tensor,
+              eps: float = 1e-8) -> torch.Tensor:
+    """Plain Dice over the whole batch per channel. pred/target: (N, H, W, C)
+    binary. Returns (C,)."""
+    axes = tuple(range(pred.dim() - 1))
+    inter = torch.sum(pred * target, dim=axes)
+    card = torch.sum(pred, dim=axes) + torch.sum(target, dim=axes)
+    return 2.0 * inter / (card + eps)
+
+
+def _surface(arr: np.ndarray) -> np.ndarray:
+    """Border pixels of a binary mask (medpy's surface erosion)."""
+    from scipy import ndimage
+    arr = np.atleast_2d(np.asarray(arr).astype(bool))
+    conn = ndimage.generate_binary_structure(arr.ndim, 1)
+    eroded = ndimage.binary_erosion(arr, structure=conn, iterations=1)
+    return arr ^ eroded
+
+
+def _surface_distances(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Distances from each surface pixel of ``a`` to the surface of ``b``."""
+    from scipy import ndimage
+    sa = _surface(a)
+    sb = _surface(b)
+    dt = ndimage.distance_transform_edt(~sb)
+    return dt[sa]
+
+
+def hd95(pred: np.ndarray, target: np.ndarray) -> float:
+    """95th percentile of the pooled bidirectional surface distances
+    (medpy ``binary.hd95``). Both inputs must be non-empty binary masks."""
+    d1 = _surface_distances(pred, target)
+    d2 = _surface_distances(target, pred)
+    return float(np.percentile(np.hstack((d1, d2)), 95))
+
+
+def hd95_with_penalty(pred: np.ndarray, target: np.ndarray,
+                      penalty: float = 100.0) -> float:
+    """hd95, or ``penalty`` when either mask is empty (the reference's
+    empty-prediction penalty)."""
+    pred = np.asarray(pred).astype(bool)
+    target = np.asarray(target).astype(bool)
+    if pred.sum() < 1 or target.sum() < 1:
+        return penalty
+    return hd95(pred, target)

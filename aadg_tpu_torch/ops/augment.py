@@ -255,18 +255,27 @@ def make_fused_op_switcher(op_names: List[str]) -> Callable:
     need_hist = any(n in ("AutoContrast", "Equalize") for n in lut_names)
     need_luma = any(n in ("Contrast", "Color") for n in op_names)
     need_mean = "Contrast" in lut_names
-    lows = [OP_TABLE[OP_INDEX[n]][2] for n in op_names]
-    highs = [OP_TABLE[OP_INDEX[n]][3] for n in op_names]
+    # per-op constant tables (lows, highs, case, LUT slot), copied to each
+    # device once: a copy per call would stall the host on the stream
+    host_tables = (
+        torch.tensor([OP_TABLE[OP_INDEX[n]][2] for n in op_names],
+                     dtype=torch.float32),
+        torch.tensor([OP_TABLE[OP_INDEX[n]][3] for n in op_names],
+                     dtype=torch.float32),
+        torch.tensor([case_of[x] for x in op_names]),
+        torch.tensor([lut_names.index(x) if x in lut_names else 0
+                      for x in op_names]),
+        torch.arange(256, dtype=torch.float32))
+    device_tables = {}
 
     def switcher(op_idx, level, img, mask, centre):
         dev = img.device
         n, h, w, _ = img.shape
-        lo_t = torch.tensor(lows, dtype=torch.float32, device=dev)
-        hi_t = torch.tensor(highs, dtype=torch.float32, device=dev)
+        if dev not in device_tables:
+            device_tables[dev] = tuple(t.to(dev) for t in host_tables)
+        lo_t, hi_t, case_t, slot_t, bins = device_tables[dev]
         v_all = level[:, None] * (hi_t - lo_t) + lo_t          # (N, K)
-        case = torch.tensor([case_of[x] for x in op_names],
-                            device=dev)[op_idx]
-        bins = torch.arange(256, dtype=torch.float32, device=dev)
+        case = case_t[op_idx]
 
         luma = _luma(img) if need_luma else None
         mean_luma = _mean_luma(luma) if need_mean else None
@@ -278,10 +287,8 @@ def make_fused_op_switcher(op_names: List[str]) -> Callable:
                 _LUT_BUILDERS[x](hist3, h * w, mean_luma,
                                  v_all[:, op_names.index(x)], bins)
                 for x in lut_names], dim=1)                     # (N, Kl, 3, 256)
-            slot = torch.tensor(
-                [lut_names.index(x) if x in lut_names else 0
-                 for x in op_names], device=dev)[op_idx]
-            lut = luts[torch.arange(n, device=dev), slot].contiguous()
+            lut = luts[torch.arange(n, device=dev),
+                       slot_t[op_idx]].contiguous()
             out_img = _lut.lut_apply3(img, lut)
 
         for name in specials:
@@ -318,8 +325,8 @@ def draw_policy(n: int, m: int, n_subpolicies: int, L: int, h: int, w: int,
     q = torch.randint(0, n_subpolicies, (n, m), generator=generator,
                       device=dev)
     u = torch.rand((n, m, L, 2), generator=generator, device=dev)
-    scale = torch.tensor([float(w), float(h)], device=dev)
-    return PolicyDraw(q, u * scale)
+    return PolicyDraw(q, torch.stack((u[..., 0] * float(w),
+                                      u[..., 1] * float(h)), dim=-1))
 
 
 def make_policy_applier(op_names: List[str], n_subpolicies: int, L: int,

@@ -2,9 +2,13 @@
 
     python -m aadg_tpu_torch.run --cfg experiments/optic_sinkhorn/diversity.yaml \
         --mode search [--smoke_test] [--device cpu] [KEY VALUE ...]
+    python -m aadg_tpu_torch.run --cfg ... --mode train \
+        TPU.AUTOAUGMENT True TEST.MODEL_DIR <search run dir> [KEY VALUE ...]
+    python -m aadg_tpu_torch.run --cfg ... --mode test \
+        --output_type {seg,image} [--vis_dir DIR] TEST.MODEL_DIR <run dir>
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises when
-no card is visible and the CPU was not asked for. Only ``--mode search`` is
+no card is visible and the CPU was not asked for. Only the optic task is
 ported so far.
 """
 
@@ -68,10 +72,14 @@ def main(argv=None):
     if args.mode == "search":
         from .engine.search import run_search
         return run_search(cfg, args.cfg, device=device)
-    if args.mode in ("train", "test"):
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet: ROADMAP.md queue 1, "
-            "item 3 (train and test modes)")
+    if args.mode == "train":
+        from .engine.train import run_train
+        return run_train(cfg, args.cfg, device=device)
+    if args.mode == "test":
+        from .engine.test import run_test
+        return run_test(cfg, args.cfg, vis_dir=args.vis_dir,
+                        output_type=args.output_type, seed=args.seed,
+                        device=device)
     raise NotImplementedError("Only [search / train / test] are supported.")
 
 

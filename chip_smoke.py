@@ -22,17 +22,34 @@ exit code:
 4. reference: one search step on the card (kernels) and on the CPU (plain
    versions) from the same weights, batch and draws at crop 64 in f32;
    losses within rtol 1e-4 and rewards within rtol 1e-3;
-5. main path: run_search on the flagship config
-   (experiments/optic_sinkhorn/diversity.yaml: DeepLabV3+/MobileNetV2,
-   B=8 x 3 domains x M=6 policies, crop 256) on synthetic_optic at 256^2,
-   one warmup and two search epochs of two steps, with every launch
-   counter set to 0 just before; sinkhorn_solve must have been launched
-   once per search step, K1 never, K2 and K3 at least once, and every loss
-   and reward must be finite;
-6. profile: three more flagship search steps under torch.profiler, with
-   the device time per kernel category, the device's idle share, the host
-   and device time of each stage, and the stream synchronizations and
-   host-to-device copies per step.
+5. main path (search): ``python -m aadg_tpu_torch.run --mode search`` on
+   the flagship config (experiments/optic_sinkhorn/diversity.yaml:
+   DeepLabV3+/MobileNetV2, B=8 x 3 domains x M=6 policies, crop 256) on
+   synthetic_optic at 256^2, one warmup and two search epochs of two
+   steps, validating after every epoch and checkpointing every search
+   epoch; sinkhorn_solve must have been launched once per search step, K1
+   never, K2 and K3 at least once, every loss and reward must be finite,
+   final_result.json must hold dice in [0, 1] and hd95 in [0, 100], and
+   final_controller_state.pt must load;
+6. train path: ``--mode train TPU.AUTOAUGMENT True TEST.MODEL_DIR <search
+   run>`` at the same width, two epochs of three steps; K2 and K3 exactly
+   L=2 launches per train step, sinkhorn_solve and K1 none, finite losses
+   and final_result.json;
+7. train reference: one autoaugment train step on the card and on the CPU
+   from the same weights, batch and draws at crop 64 in f32, once for each
+   outcome of its coin; losses within rtol 1e-4;
+8. test path: ``--mode test --output_type seg`` from the train run (4
+   PNG maps and the CSV table) and ``--output_type image`` from the search
+   run (32 augmented images); K2 and K3 must have launched;
+9. profile: three more flagship search steps and three train steps under
+   torch.profiler, each after two warm-up steps and one step run under
+   torch.cuda.set_sync_debug_mode("error") (any synchronizing call fails
+   the run), with the device time per kernel category, the device's idle
+   share, the host and device time of each stage, and the stream
+   synchronizations and host-to-device copies per step.
+
+Every path runs with each kernel's launch counter set to 0 just before it
+and read just after; the kernels line gives the counts per path.
 
 Then a line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when no
@@ -43,16 +60,25 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+
+CFG_PATH = "experiments/optic_sinkhorn/diversity.yaml"
+OUT_DIR = Path("output/chip_smoke")
+# the flagship config on synthetic_optic at 256^2 (the Fundus data is not
+# in the repo)
+DATA_OPTS = ["DATASET.NAME", "synthetic_optic", "TPU.SYNTHETIC_SIZE", "256"]
+FULL_WIDTH = [*DATA_OPTS, "LOG_DIR", str(OUT_DIR / "log")]
 
 
 def log(msg: str) -> None:
@@ -325,7 +351,7 @@ def phase_reference(dev):
     from aadg_tpu_torch.config import load_config
     from aadg_tpu_torch.data.datasets import SyntheticDataset
     from aadg_tpu_torch.engine import state, steps
-    cfg = load_config("experiments/optic_sinkhorn/diversity.yaml", [
+    cfg = load_config(CFG_PATH, [
         "DATASET.NAME", "synthetic_optic", "TPU.CROP_SIZE", "64",
         "TRAIN.BATCH_SIZE", "1", "CONTROLLER.M", "2",
         "TPU.COMPUTE_DTYPE", "float32"])
@@ -361,40 +387,82 @@ def phase_reference(dev):
         f"rewards {r_gpu.tolist()} vs {r_cpu.tolist()})")
 
 
-def phase_main_path(dev):
-    from aadg_tpu_torch.config import load_config
-    from aadg_tpu_torch.engine.search import run_search
+def launch_counters() -> dict:
     from aadg_tpu_torch.ops import lut, sinkhorn
-    cfg_path = "experiments/optic_sinkhorn/diversity.yaml"
-    cfg = load_config(cfg_path, [
-        "DATASET.NAME", "synthetic_optic", "TPU.SYNTHETIC_SIZE", "256",
-        "TRAIN.WARMUP_EPOCH", "1", "TRAIN.END_EPOCH", "3",
-        "TPU.STEPS_PER_EPOCH", "2", "OUTPUT_DIR", "output/chip_smoke"])
-    cfg.freeze()
-    torch.cuda.reset_peak_memory_stats(dev)
-    wrappers = {"hist3": lut.hist3, "lut_apply3": lut.lut_apply3,
-                "softmin": sinkhorn.softmin,
-                "sinkhorn_solve": sinkhorn.sinkhorn_solve}
-    for fn in wrappers.values():
+    return {"hist3": lut.hist3, "lut_apply3": lut.lut_apply3,
+            "softmin": sinkhorn.softmin,
+            "sinkhorn_solve": sinkhorn.sinkhorn_solve}
+
+
+def drive(flags, opts=()):
+    """``python -m aadg_tpu_torch.run <flags> KEY VALUE ...`` in process,
+    on the card, at full width, with every launch counter set to 0 just
+    before; returns (its result, the launches it made)."""
+    from aadg_tpu_torch import run
+    counters = launch_counters()
+    for fn in counters.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    summary = run_search(cfg, cfg_path, device=dev)
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    n_steps = len(summary["search_step_seconds"])
-    expect = {"sinkhorn_solve": lambda v: v == n_steps,
-              "softmin": lambda v: v == 0,
-              "hist3": lambda v: v > 0, "lut_apply3": lambda v: v > 0}
+    out = run.main(["--cfg", CFG_PATH, "--output_dir", str(OUT_DIR), *flags,
+                    *FULL_WIDTH, *opts])
+    return out, {k: fn.launches for k, fn in counters.items()}
+
+
+def check_launches(path: str, launches: dict, expect: dict) -> None:
     for k, v in launches.items():
         if not expect[k](v):
-            raise AssertionError(f"kernel {k} launched {v} times over the "
-                                 f"main path's {n_steps} search steps")
+            raise AssertionError(f"kernel {k} launched {v} times on the "
+                                 f"{path} path")
+
+
+def check_epochs(summary) -> None:
     for e in summary["epochs"]:
-        vals = list(e["metrics"].values()) + e.get("rewards", []) + [
-            x for r in e.get("raw_rewards", []) for x in r] + list(
-                e.get("controller", {}).values())
+        vals = (list(e["metrics"].values()) + list(e["valid"].values())
+                + e.get("rewards", [])
+                + [x for r in e.get("raw_rewards", []) for x in r]
+                + list(e.get("controller", {}).values()))
         if not all(math.isfinite(v) for v in vals):
             raise AssertionError(f"non-finite values in epoch {e}")
+
+
+def check_final_result(run_dir: str, with_hd: bool) -> dict:
+    res = json.loads((Path(run_dir) / "final_result.json").read_text())
+    keys = ["avg_dsc", "cup_dsc", "disc_dsc"] + (
+        ["avg_hd", "cup_hd", "disc_hd"] if with_hd else [])
+    for k in keys:
+        top = 100.0 if k.endswith("hd") else 1.0
+        if not (math.isfinite(res[k]) and 0.0 <= res[k] <= top):
+            raise AssertionError(f"final_result.json {k} = {res[k]}")
+    return res
+
+
+def epoch_costs(summary) -> str:
+    """Validation and checkpoint seconds per epoch, in ms."""
+    return ("validation ms " + str([round(e["valid_seconds"] * 1e3, 1)
+                                    for e in summary["epochs"]])
+            + ", checkpoint ms " + str([
+                round(e["checkpoint_seconds"] * 1e3, 1)
+                for e in summary["epochs"] if "checkpoint_seconds" in e]))
+
+
+def phase_main_path(dev):
+    from aadg_tpu_torch.utils.checkpoint import load_checkpoint
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    summary, launches = drive(
+        ["--mode", "search"], ["TRAIN.WARMUP_EPOCH", "1", "TRAIN.END_EPOCH",
+                               "3", "TPU.STEPS_PER_EPOCH", "2"])
+    wall = time.perf_counter() - t0
+    n_steps = len(summary["search_step_seconds"])
+    check_launches("search", launches, {
+        "sinkhorn_solve": lambda v: v == n_steps,
+        "softmin": lambda v: v == 0,
+        "hist3": lambda v: v > 0, "lut_apply3": lambda v: v > 0})
+    check_epochs(summary)
+    res = check_final_result(summary["out_dir"], with_hd=True)
+    ctrl = load_checkpoint(str(Path(summary["out_dir"])
+                               / "final_controller_state.pt"))["controller"]
+    if not all(torch.isfinite(v).all() for v in ctrl.values()):
+        raise AssertionError("final_controller_state.pt is not finite")
     steps = summary["search_step_seconds"]
     imgs = summary["images_per_search_step"]
     med = statistics.median(steps)
@@ -404,9 +472,123 @@ def phase_main_path(dev):
         f"{len(steps)} steps ({imgs} images, {imgs / med:.1f} img/s; "
         f"steps {[round(s * 1e3, 1) for s in steps]} ms); peak memory "
         f"{peak:.2f} GiB; launches {launches}")
+    log(f"[main path] validation every epoch ({epoch_costs(summary)}); "
+        f"last {summary['epochs'][-1]['valid']}; final_result.json {res}; "
+        f"final_controller_state.pt loads ({len(ctrl)} tensors)")
+    return launches, summary["out_dir"]
+
+
+def phase_train_path(dev, search_dir: str):
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    summary, launches = drive(
+        ["--mode", "train"], ["TPU.AUTOAUGMENT", "True", "TEST.MODEL_DIR",
+                              search_dir, "TRAIN.END_EPOCH", "2",
+                              "TPU.STEPS_PER_EPOCH", "3"])
+    wall = time.perf_counter() - t0
+    steps = summary["train_step_seconds"]
+    L = 2  # ops per sub-policy: one switcher call, one K2 and one K3 each
+    check_launches("train", launches, {
+        "sinkhorn_solve": lambda v: v == 0, "softmin": lambda v: v == 0,
+        "hist3": lambda v: v == L * len(steps),
+        "lut_apply3": lambda v: v == L * len(steps)})
+    check_epochs(summary)
+    res = check_final_result(summary["out_dir"], with_hd=False)
+    text = (Path(summary["out_dir"]) / "train.log").read_text()
+    if "autoaugment: loaded controller" not in text:
+        raise AssertionError("the train run did not load the searched "
+                             "controller")
+    imgs = summary["images_per_train_step"]
+    med = statistics.median(steps)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"[train path] run_train (autoaugment): {len(summary['epochs'])} "
+        f"epochs in {wall:.1f} s; train step median {med * 1e3:.1f} ms "
+        f"over {len(steps)} steps ({imgs} images, {imgs / med:.1f} img/s; "
+        f"steps {[round(s * 1e3, 1) for s in steps]} ms); peak memory "
+        f"{peak:.2f} GiB; launches {launches}; {epoch_costs(summary)}; "
+        f"final_result.json {res}")
+    return launches, summary["out_dir"]
+
+
+def phase_train_reference(dev):
+    """One autoaugment train step on the card and on the CPU from the same
+    state, batch, policy and draws, for each outcome of the coin."""
+    from aadg_tpu_torch.config import load_config
+    from aadg_tpu_torch.data.datasets import SyntheticDataset
+    from aadg_tpu_torch.engine import state, steps
+    cfg = load_config(CFG_PATH, [
+        "DATASET.NAME", "synthetic_optic", "TPU.CROP_SIZE", "64",
+        "TRAIN.BATCH_SIZE", "1", "TPU.COMPUTE_DTYPE", "float32"])
+    ds = SyntheticDataset("optic", n_per_domain=1, size=64)
+    imgs = torch.stack([torch.from_numpy(d.images[0]) for d in ds.domains])
+    masks = torch.stack([torch.from_numpy(d.labels[0]) for d in ds.domains])
+    batch = (imgs[None].float(), masks[None].float(),
+             torch.arange(3)[None])
+    pol = torch.randint(0, 10, (1, 5, 2, 2),
+                        generator=torch.Generator().manual_seed(1))
+    pol[0, :, 0, 0] = torch.tensor([0, 2, 0, 2, 0])  # AutoContrast, Equalize
+    ent_cpu = state.build_entities(cfg, "train", 1, "cpu")
+    draws = steps.draw_train(ent_cpu, 3, 64, 64,
+                             torch.Generator().manual_seed(2))
+    for coin in (0.75, 0.25):
+        results = {}
+        for device in ("cpu", dev):
+            ent = state.build_entities(cfg, "train", 1, device)
+            sd, _ = state.init_state(ent, 0)
+            move = lambda t: t.to(device)
+            d = steps.TrainDraws(
+                torch.tensor(coin, device=device),
+                type(draws.policy)(*map(move, draws.policy)),
+                type(draws.crop)(*map(move, draws.crop)))
+            ms = steps.make_autoaug_train_step(ent)(
+                sd, tuple(map(move, batch)), move(pol), d)
+            results[str(device)] = {k: float(v) for k, v in ms.items()}
+        m_cpu, m_gpu = results["cpu"], results[str(dev)]
+        if not math.isclose(m_gpu["seg_loss"], m_cpu["seg_loss"],
+                            rel_tol=1e-4):
+            raise AssertionError(f"coin {coin}: seg_loss card "
+                                 f"{m_gpu['seg_loss']} vs cpu "
+                                 f"{m_cpu['seg_loss']}")
+        log(f"[train reference] autoaugment train step at crop 64, coin "
+            f"{coin} ({'augmented' if coin > 0.5 else 'raw'} batch): card "
+            f"== cpu within rtol 1e-4 (seg_loss {m_gpu['seg_loss']:.6f} vs "
+            f"{m_cpu['seg_loss']:.6f}; dice card {m_gpu['cup_dsc']:.4f}/"
+            f"{m_gpu['disc_dsc']:.4f}, cpu {m_cpu['cup_dsc']:.4f}/"
+            f"{m_cpu['disc_dsc']:.4f})")
+
+
+def phase_test_path(train_dir: str, search_dir: str):
+    seg_dir, img_dir = OUT_DIR / "vis_seg", OUT_DIR / "vis_image"
+    for d in (seg_dir, img_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    table, seg_launches = drive(
+        ["--mode", "test", "--output_type", "seg", "--vis_dir",
+         str(seg_dir)], ["TEST.MODEL_DIR", train_dir])
+    t_seg = time.perf_counter() - t0
+    res, img_launches = drive(
+        ["--mode", "test", "--output_type", "image", "--vis_dir",
+         str(img_dir)], ["TEST.MODEL_DIR", search_dir])
+    wall = time.perf_counter() - t0
+    launches = {k: seg_launches[k] + img_launches[k] for k in seg_launches}
+    check_launches("test", launches, {
+        "sinkhorn_solve": lambda v: v == 0, "softmin": lambda v: v == 0,
+        "hist3": lambda v: v > 0, "lut_apply3": lambda v: v > 0})
+    maps = sorted(p.name for p in seg_dir.glob("*.png"))
+    if maps != sorted(table["name"]) or len(maps) != 4 or not (
+            seg_dir / "test_result.csv").exists():
+        raise AssertionError(f"test seg wrote {sorted(seg_dir.iterdir())}")
+    f1 = [v for k in ("f1_score_avg", "f1_score_disc", "f1_score_cup")
+          for v in table[k]]
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in f1):
+        raise AssertionError(f"test seg F1 {table}")
+    n_img = len(list(img_dir.glob("sample*.png")))
+    if res != {"n_images": 32} or n_img != 32:
+        raise AssertionError(f"test image wrote {n_img} images ({res})")
+    log(f"[test path] seg: 4 PNG maps + test_result.csv in {t_seg:.1f} s "
+        f"(F1 avg {[round(v, 4) for v in table['f1_score_avg']]}); image: "
+        f"32 augmented PNGs; {wall:.1f} s in all; launches {launches}")
     return launches
-
-
 _CATEGORIES = (  # first match wins; kernel names lower-cased
     ("sinkhorn_solve", ("sinkhorn_solve_kernel",)),
     ("K1 softmin", ("softmin_kernel",)),
@@ -433,38 +615,61 @@ def _category(name: str) -> str:
     return "other"
 
 
-def phase_profile(dev, steps: int = 3):
-    """Device time of one flagship search step by kernel category, from
-    torch.profiler over ``steps`` steps after two warm-up steps, the
-    device's idle share (1 - kernel time / wall time), and the stream
-    synchronizations and host-to-device copies per step, in all and inside
-    the rewards stage."""
-    from torch.profiler import ProfilerActivity, profile
+def flagship_step(dev, kind: str):
+    """A closure running one full-width flagship step of ``kind``
+    ("search": M=6 policies, rewards; "train": the autoaugment train step)
+    with its batch and draws, as the run loops issue it."""
     from aadg_tpu_torch.config import load_config
     from aadg_tpu_torch.data.datasets import build_dataset, load_train_arrays
     from aadg_tpu_torch.data.stores import (draw_batch_indices, gather_batch,
                                             make_train_store)
     from aadg_tpu_torch.engine import state, steps as steps_mod
     from aadg_tpu_torch.models.controller import policies_to_tensor
-    cfg = load_config("experiments/optic_sinkhorn/diversity.yaml", [
-        "DATASET.NAME", "synthetic_optic", "TPU.SYNTHETIC_SIZE", "256"])
+    cfg = load_config(CFG_PATH, DATA_OPTS)
     store = make_train_store(*load_train_arrays(build_dataset(cfg, "train")),
                              dev)
-    ent = state.build_entities(cfg, "search", 2, dev)
+    ent = state.build_entities(cfg, kind, 2, dev)
     sd, cs = state.init_state(ent, 0)
     gen = torch.Generator(dev).manual_seed(0)
+    b = int(cfg.TRAIN.BATCH_SIZE)
+    n0, (h, w) = b * store.n_domains, store.images.shape[2:4]
+    m = int(cfg.CONTROLLER.M) if kind == "search" else 1
     with torch.no_grad():
-        pol = policies_to_tensor(cs.controller.sample(6, gen)[0],
+        pol = policies_to_tensor(cs.controller.sample(m, gen)[0],
                                  ent.ctrl_spec)
-    step = steps_mod.make_search_step(ent, 6)
+    if kind == "search":
+        step = steps_mod.make_search_step(ent, m)
+        draw = lambda: steps_mod.draw_search(ent, n0, m, h, w, gen)
+    else:
+        step = steps_mod.make_autoaug_train_step(ent)
+        draw = lambda: steps_mod.draw_train(ent, n0, h, w, gen)
 
     def one():
-        raw = gather_batch(store, draw_batch_indices(store, 8, gen))
-        step(sd, raw, pol, steps_mod.draw_search(ent, 24, 6, 256, 256, gen))
+        raw = gather_batch(store, draw_batch_indices(store, b, gen))
+        step(sd, raw, pol, draw())
+    return one
 
+
+def phase_profile(dev, kind: str, steps: int = 3):
+    """For one flagship step of ``kind``: two warm-up steps, then one step
+    under torch.cuda.set_sync_debug_mode("error") (a synchronizing call
+    raises), then ``steps`` steps under torch.profiler: the device time by
+    kernel category, the device's idle share (1 - kernel time / wall
+    time), the host and device time of each stage, and the stream
+    synchronizations and host-to-device copies per step."""
+    from torch.profiler import ProfilerActivity, profile
+    one = flagship_step(dev, kind)
     for _ in range(2):
         one()
     torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[profile] {kind} step: a warmed step made no synchronizing call "
+        "under set_sync_debug_mode('error')")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -472,16 +677,17 @@ def phase_profile(dev, steps: int = 3):
             one()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    prefix = kind + "/"
     per_cat, per_kernel, stages = {}, {}, {}
     for evt in prof.key_averages():
-        if evt.key.startswith("search/"):
+        if evt.key.startswith(prefix):
             # the step's stage ranges: host time on the CPU row, the span of
             # the stage's kernels on the device row
             on_device = evt.device_type == torch.autograd.DeviceType.CUDA
             us = (max(getattr(evt, "self_device_time_total", 0.0),
                       getattr(evt, "device_time_total", 0.0)) if on_device
                   else evt.cpu_time_total)
-            stages.setdefault(evt.key[len("search/"):], {})[
+            stages.setdefault(evt.key[len(prefix):], {})[
                 "device_ms" if on_device else "host_ms"] = us / 1e3 / steps
             continue
         if (evt.device_type != torch.autograd.DeviceType.CUDA
@@ -497,34 +703,36 @@ def phase_profile(dev, steps: int = 3):
     busy = sum(per_cat.values())
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
-    syncs = sync_counts(prof, steps)
+    syncs = sync_counts(prof, steps, prefix + "rewards")
     cats = sorted(per_cat.items(), key=lambda kv: -kv[1])
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
-    log(f"[profile] search step: wall {wall_ms:.1f} ms, device busy "
+    log(f"[profile] {kind} step: wall {wall_ms:.1f} ms, device busy "
         f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; by category "
         "(ms/step): " + ", ".join(f"{k} {v:.2f}" for k, v in cats))
-    log("[profile] top kernels (ms/step): " + "; ".join(
+    log(f"[profile] {kind} top kernels (ms/step): " + "; ".join(
         f"{k[:70]} {v:.2f}" for k, v in top))
-    log("[profile] stages (host ms / device-span ms per step): " + ", ".join(
-        f"{k} {v.get('host_ms', 0.0):.2f}/{v.get('device_ms', 0.0):.2f}"
-        for k, v in stages.items()))
-    log("[profile] per step: " + ", ".join(
+    log(f"[profile] {kind} stages (host ms / device-span ms per step): "
+        + ", ".join(f"{k} {v.get('host_ms', 0.0):.2f}/"
+                    f"{v.get('device_ms', 0.0):.2f}"
+                    for k, v in stages.items()))
+    log(f"[profile] {kind} per step: " + ", ".join(
         f"{k} {v:g}" for k, v in syncs.items()))
     return {"wall_ms": wall_ms, "busy_ms": busy, "categories": dict(cats),
             "stages": stages, "syncs": syncs}
 
 
-def sync_counts(prof, steps: int) -> dict:
+def sync_counts(prof, steps: int, rewards_range: str) -> dict:
     """cudaStreamSynchronize calls and host-to-device copies per step, and
     the synchronizing or copying runtime calls issued inside the host
-    ranges of search/rewards."""
+    ranges named ``rewards_range`` (the search step's rewards stage)."""
     events = prof.events()
     rewards = [(e.time_range.start, e.time_range.end) for e in events
-               if e.name == "search/rewards"
+               if e.name == rewards_range
                and e.device_type == torch.autograd.DeviceType.CPU]
-    out = {"cudaStreamSynchronize": 0, "Memcpy HtoD": 0,
-           "in rewards: cudaStreamSynchronize": 0,
-           "in rewards: cudaMemcpyAsync": 0}
+    out = {"cudaStreamSynchronize": 0, "Memcpy HtoD": 0}
+    if rewards:
+        out.update({"in rewards: cudaStreamSynchronize": 0,
+                    "in rewards: cudaMemcpyAsync": 0})
     for e in events:
         if e.name == "cudaStreamSynchronize":
             out["cudaStreamSynchronize"] += 1
@@ -553,10 +761,16 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(dev)
     phase_reference(dev)
-    launches = phase_main_path(dev)
-    phase_profile(dev)
+    by_path = {}
+    by_path["search"], search_dir = phase_main_path(dev)
+    by_path["train"], train_dir = phase_train_path(dev, search_dir)
+    phase_train_reference(dev)
+    by_path["test"] = phase_test_path(train_dir, search_dir)
+    for kind in ("search", "train"):
+        phase_profile(dev, kind)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = by_path["search"][r["name"]]
+        r["launches_by_path"] = {p: v[r["name"]] for p, v in by_path.items()}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

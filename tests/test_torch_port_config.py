@@ -89,7 +89,50 @@ def test_entry_point_refuses_missing_card(monkeypatch):
     assert trun.resolve_device("cpu").type == "cpu"
 
 
-def test_entry_point_train_mode_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_entry_point_dispatches_train_and_test(monkeypatch, mode):
+    from aadg_tpu_torch.engine import test as ttest
+    from aadg_tpu_torch.engine import train as ttrain
+    calls = []
+    monkeypatch.setattr(ttrain, "run_train", lambda cfg, path, **kw: (
+        calls.append(("train", cfg, path, kw)) or "trained"))
+    monkeypatch.setattr(ttest, "run_test", lambda cfg, path, **kw: (
+        calls.append(("test", cfg, path, kw)) or "tested"))
+    cfg_path = str(ROOT / "experiments/optic_sinkhorn/diversity.yaml")
+    out = trun.main(["--cfg", cfg_path, "--device", "cpu", "--mode", mode,
+                     "--vis_dir", "v", "--output_type", "seg", "--seed",
+                     "7", "TEST.MODEL_DIR", "runs/x"])
+    assert out == mode + "ed" and len(calls) == 1
+    called, cfg, path, kw = calls[0]
+    assert called == mode and path == cfg_path and cfg.SEED == 7
+    assert cfg.TEST.MODEL_DIR == "runs/x" and kw["device"].type == "cpu"
+    if mode == "test":
+        assert kw == {"vis_dir": "v", "output_type": "seg", "seed": 7,
+                      "device": kw["device"]}
+
+
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_train_and_test_modes_refuse_missing_card(monkeypatch, mode):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        trun.main(["--cfg", str(ROOT / "experiments/optic_sinkhorn/"
+                                "diversity.yaml"), "--mode", mode])
+
+
+def test_entry_point_rejects_unknown_mode():
+    with pytest.raises(NotImplementedError, match="search / train / test"):
         trun.main(["--cfg", str(ROOT / "tests/fixtures/synthetic_optic.yaml"),
-                   "--device", "cpu", "--mode", "train"])
+                   "--device", "cpu", "--mode", "export"])
+
+
+def _entry_functions():
+    from aadg_tpu_torch.engine import search, state, test, train
+    return [state.build_entities, search.run_search, train.run_train,
+            test.run_test]
+
+
+@pytest.mark.parametrize("fn", _entry_functions(),
+                         ids=lambda f: f.__name__)
+def test_entry_functions_default_to_the_card(fn):
+    import inspect
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
