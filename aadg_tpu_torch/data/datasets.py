@@ -1,8 +1,9 @@
-"""Host-side datasets: the hermetic synthetic optic pools.
+"""Host-side datasets: the hermetic synthetic optic and vessel pools.
 
 The port's copy of the synthetic half of ``aadg_tpu/data/datasets.py``
 (:141-288), with the same numpy generator calls so the pools are identical
-byte for byte. The Fundus and RVS disk readers are not ported yet.
+byte for byte. The Fundus and RVS disk readers are not ported yet
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -25,28 +26,31 @@ class DomainData:
 
 class SyntheticDataset:
     """Optic-style pools: a bright disc with a darker cup on a
-    domain-dependent background (mask gray levels 255/128/0 like Fundus).
+    domain-dependent background (mask gray levels 255/128/0 like Fundus);
     ``task="optic_tint"`` is the learning-testbed variant whose domains
-    differ only by a chroma tint."""
+    differ only by a chroma tint. Any other task gives vessel-style pools:
+    random walks of bright curves (binary mask) with a circular ROI."""
 
     def __init__(self, task: str = "optic", n_domains: int = 3,
                  n_per_domain: int = 12, size: int = 64, seed: int = 0):
-        if task not in ("optic", "optic_tint"):
-            raise NotImplementedError(
-                f"synthetic task {task!r} is not ported yet")
-        make = self._make_optic_tint if task == "optic_tint" else \
-            self._make_optic
         rng = np.random.default_rng(seed)
         self.domains = []
         for d in range(n_domains):
-            imgs, labels, names = [], [], []
+            imgs, labels, rois, names = [], [], [], []
             for i in range(n_per_domain):
-                img, lab = make(rng, size, d)
+                if task == "optic_tint":
+                    img, lab = self._make_optic_tint(rng, size, d)
+                elif task == "optic":
+                    img, lab = self._make_optic(rng, size, d)
+                else:
+                    img, lab, roi = self._make_vessel(rng, size, d)
+                    rois.append(roi)
                 imgs.append(img)
                 labels.append(lab)
                 names.append(f"d{d}_{i}.png")
             self.domains.append(DomainData(
-                f"SYN{d}", np.stack(imgs), np.stack(labels), names))
+                f"SYN{d}", np.stack(imgs), np.stack(labels), names,
+                rois=np.stack(rois) if rois else None))
 
     @staticmethod
     def _disc_and_cup(rng, size):
@@ -80,14 +84,33 @@ class SyntheticDataset:
         img[cup] = np.clip(img[cup] + 40, 0, 255)
         return img.astype(np.uint8), lab
 
+    @staticmethod
+    def _make_vessel(rng, size, domain):
+        base = 40 + 30 * domain
+        img = np.clip(rng.normal(base, 10, (size, size, 3)), 0, 255)
+        lab = np.zeros((size, size), np.uint8)
+        for _ in range(3):
+            y = rng.integers(5, size - 5)
+            for x in range(size):
+                rows = slice(max(y - 1, 0), y + 1)
+                lab[rows, x] = 255
+                img[rows, x] = np.clip(img[rows, x] + 90, 0, 255)
+                y = int(np.clip(y + rng.integers(-2, 3), 1, size - 2))
+        yy, xx = np.mgrid[0:size, 0:size]
+        roi = (((yy - size / 2) ** 2 + (xx - size / 2) ** 2)
+               < (size * 0.48) ** 2).astype(np.uint8) * 255
+        return img.astype(np.uint8), lab, roi
+
 
 def build_dataset(cfg, phase: str):
-    """Dataset factory for the ``synthetic*`` names."""
+    """Dataset factory for the ``synthetic*`` names: ``*optic_tint*``,
+    ``*optic*``, and the vessel task (with ROIs) for any other."""
     name = cfg.DATASET.NAME
-    if not name.startswith("synthetic") or "optic" not in name:
+    if not name.startswith("synthetic"):
         raise NotImplementedError(
             f"dataset {name!r} is not ported yet (ROADMAP queue 1)")
-    task = "optic_tint" if "optic_tint" in name else "optic"
+    task = ("optic_tint" if "optic_tint" in name
+            else "optic" if "optic" in name else "rvs")
     n_dom = 3 if phase == "train" else 1
     size = int(cfg.TPU.SYNTHETIC_SIZE)
     return SyntheticDataset(task=task, n_domains=n_dom,

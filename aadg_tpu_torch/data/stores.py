@@ -27,9 +27,11 @@ class TrainStore(NamedTuple):
     def n_domains(self) -> int:
         return self.images.shape[0]
 
-    def steps_per_epoch(self, batch_size: int) -> int:
-        """ceil(largest pool / batch), the optic epoch length."""
-        return max(1, math.ceil(int(self.counts.max()) / batch_size))
+    def steps_per_epoch(self, batch_size: int, length_mult: int = 1) -> int:
+        """ceil(largest pool x length_mult / batch): the epoch length, with
+        ``length_mult`` 3 for the rvs disk data and 1 otherwise."""
+        return max(1, math.ceil(int(self.counts.max()) * length_mult
+                                / batch_size))
 
 
 class TestStore(NamedTuple):

@@ -36,6 +36,16 @@ def optic_mask_to_multilabel(mask: torch.Tensor) -> torch.Tensor:
     return torch.stack([cup, disc], dim=-1).float()
 
 
+def vessel_mask_to_binary(mask: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) -> (..., H, W, 1): nonzero -> 1."""
+    return (mask != 0.0).float()[..., None]
+
+
+def roi_to_binary(roi: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) -> (..., H, W, 1): nonzero -> 1 (GenerateMask)."""
+    return (roi != 0.0).float()[..., None]
+
+
 # ---------------------------------------------------------------------------
 # Soft domain label (SoftLable)
 # ---------------------------------------------------------------------------
@@ -124,7 +134,8 @@ def random_scale_crop(img: torch.Tensor, mask: torch.Tensor,
     """(N, H, W, 3) f32 images, (N, H, W) masks -> (N, crop, crop, 3),
     (N, crop, crop): PIL-truncated scaled size, integer crop offset,
     bilinear+antialias for the image, nearest for the mask
-    (``transforms.py:74-124``). Needs min scale * size >= crop."""
+    (``transforms.py:74-124``). Needs min scale * size >= crop
+    (``make_train_transform`` checks it)."""
     n, h, w = img.shape[0], img.shape[1], img.shape[2]
     new_w = torch.floor(draw.sw * w)
     new_h = torch.floor(draw.sh * h)
@@ -152,16 +163,22 @@ def random_scale_crop(img: torch.Tensor, mask: torch.Tensor,
 
 
 def make_train_transform(dataset_name: str, crop: int):
-    """Batched (scale-crop -> normalize -> mask encode) for the optic task
-    (scales [1, 1.5]). Returns (transform, scale_range) with
-    ``transform(imgs, masks, draw) -> (x, y)``."""
-    if dataset_name != "optic":
-        raise NotImplementedError(
-            f"{dataset_name} transforms are not ported yet (ROADMAP queue 1)")
-    scale_range = (1.0, 1.5)
+    """Batched (scale-crop -> normalize -> mask encode): optic scales
+    [1, 1.5] and the (cup, disc) label, every other task scales [0.5, 2]
+    and the binary vessel label. Returns (transform, scale_range) with
+    ``transform(imgs, masks, draw) -> (x, y)``; the images must be at least
+    ``crop / min(scale_range)`` on each side."""
+    optic = dataset_name == "optic"
+    scale_range = (1.0, 1.5) if optic else (0.5, 2.0)
+    to_label = optic_mask_to_multilabel if optic else vessel_mask_to_binary
+    lo = scale_range[0]
 
     def transform(imgs, masks, draw: ScaleCropDraw):
+        h, w = imgs.shape[1], imgs.shape[2]
+        if lo * min(h, w) < crop:  # the JAX package's assertion
+            raise AssertionError(
+                f"scale_range {scale_range} x size {h} < crop {crop}")
         imgs, masks = random_scale_crop(imgs, masks, draw, crop)
-        return normalize_image(imgs), optic_mask_to_multilabel(masks)
+        return normalize_image(imgs), to_label(masks)
 
     return transform, scale_range

@@ -1,10 +1,13 @@
-"""Validation (port of ``aadg_tpu/engine/evaluate.py:32-92, 127-131``).
+"""Validation (port of ``aadg_tpu/engine/evaluate.py:32-131``).
 
-Optic: the model in eval mode (BatchNorm on its running statistics) under
-the training autocast, sigmoid probabilities thresholded at 0.75, cup and
-disc dice per sample weighted by the test store's 0/1 weights, and
-per-image hd95 on the host with the penalty of 100 for an empty mask.
-Metrics aggregate per batch weighted by its number of real samples.
+The model runs in eval mode (BatchNorm on its running statistics) under
+the training autocast on the model's device. Optic: sigmoid probabilities
+thresholded at 0.75, cup and disc dice per sample weighted by the test
+store's 0/1 weights, and per-image hd95 on the host with the penalty of
+100 for an empty mask. RVS: threshold 0.5, the weighted dice, and the
+accuracy, AUROC, specificity and sensitivity over the ROI pixels of the
+batch's real samples, on the host. Metrics aggregate per batch weighted by
+its number of real samples.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 
 from .. import metrics as M
 from ..data.stores import TestStore
-from ..data.transforms import normalize_image, optic_mask_to_multilabel
+from ..data.transforms import (normalize_image, optic_mask_to_multilabel,
+                               vessel_mask_to_binary)
 from .state import Entities
 
 
@@ -62,9 +66,40 @@ def validate_optic(ent: Entities, model: torch.nn.Module, store: TestStore,
             "cup_hd": cup_hd / n_total, "disc_hd": disc_hd / n_total}
 
 
+def validate_rvs(ent: Entities, model: torch.nn.Module, store: TestStore,
+                 batch_size: int = 8, threshold: float = 0.5
+                 ) -> Dict[str, float]:
+    if store.rois is None:
+        raise ValueError("rvs validation needs the test store's ROIs")
+    n_pad = store.images.shape[0]
+    sums = {k: 0.0 for k in ("dsc", "acc", "aucroc", "sp", "se")}
+    n_total = 0
+    for lo in range(0, n_pad, batch_size):
+        hi = min(lo + batch_size, n_pad)
+        n_real = max(0, min(hi, store.n_real) - lo)
+        if n_real == 0:
+            break
+        soft = eval_forward(ent, model, store.images[lo:hi])
+        y = vessel_mask_to_binary(store.labels[lo:hi].float())
+        hard = (soft > threshold).float()
+        dsc = float(M.samplewise_f1(hard[..., 0], y[..., 0],
+                                    weight=store.weights[lo:hi])[1])
+        # ROI pixels of the real samples
+        roi = (store.rois[lo:hi] != 0).cpu().numpy()
+        roi[n_real:] = False
+        soft_np = soft[..., 0].cpu().numpy()
+        y_np = y[..., 0].cpu().numpy()
+        sums["dsc"] += dsc * n_real
+        sums["acc"] += M.accuracy_score(soft_np, y_np, roi) * n_real
+        sums["aucroc"] += M.auroc(soft_np, y_np, roi) * n_real
+        sums["sp"] += M.specificity(soft_np, y_np, roi) * n_real
+        sums["se"] += M.sensitivity(soft_np, y_np, roi) * n_real
+        n_total += n_real
+    return {k: v / n_total for k, v in sums.items()}
+
+
 def validate(ent: Entities, model: torch.nn.Module, store: TestStore,
              batch_size: int = 8) -> Dict[str, float]:
     if ent.dataset_name == "optic":
         return validate_optic(ent, model, store, batch_size)
-    raise NotImplementedError(
-        "validate_rvs is not ported yet (ROADMAP queue 1, item 4)")
+    return validate_rvs(ent, model, store, batch_size)

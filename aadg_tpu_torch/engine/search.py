@@ -69,8 +69,10 @@ def load_stores(cfg, device):
     test_store = make_test_store(
         *load_test_arrays(build_dataset(cfg, "test")),
         batch_size=int(cfg.TEST.BATCH_SIZE), device=device)
+    # the raw name, as the JAX package compares it: synthetic_rvs gets 1
+    length_mult = 3 if cfg.DATASET.NAME == "rvs" else 1
     steps = (int(cfg.TPU.STEPS_PER_EPOCH)
-             or store.steps_per_epoch(int(cfg.TRAIN.BATCH_SIZE)))
+             or store.steps_per_epoch(int(cfg.TRAIN.BATCH_SIZE), length_mult))
     return store, test_store, steps
 
 
@@ -93,15 +95,31 @@ def try_resume(cfg, out_dir, logger):
     return state
 
 
+def initial_best(ent, with_hd: bool) -> dict:
+    """The best-metric record before the first validation: optic dice (and
+    hd95 in search mode) or the rvs metrics."""
+    if ent.dataset_name != "optic":
+        return {"epoch": 0, "dsc": 0, "acc": 0, "aucroc": 0, "sp": 0,
+                "se": 0}
+    keys = ["avg_dsc", "cup_dsc", "disc_dsc"] + (
+        ["avg_hd", "cup_hd", "disc_hd"] if with_hd else [])
+    return {"epoch": 0, **{k: 0 for k in keys}}
+
+
 def validate_and_track(ent, sd, test_store, cfg, epoch, best, logger,
                        writer, with_hd: bool):
     """Validate after ``epoch``, log it, and update ``best`` (a dict with
-    ``dsc`` and ``metric``) in place. Returns (validation dict, is_best)."""
+    ``dsc`` and ``metric``) in place; ``with_hd`` (search mode) logs and
+    keeps the optic hd95. Returns (validation dict, is_best)."""
     vm = validate(ent, sd.model, test_store, int(cfg.TEST.BATCH_SIZE))
-    dsc = (vm["cup_dsc"] + vm["disc_dsc"]) / 2
-    current = {"epoch": epoch + 1, "avg_dsc": dsc, "cup_dsc": vm["cup_dsc"],
-               "disc_dsc": vm["disc_dsc"]}
-    if with_hd:
+    if ent.dataset_name != "optic":
+        dsc = vm["dsc"]
+        current = {"epoch": epoch + 1, **vm}
+    else:
+        dsc = (vm["cup_dsc"] + vm["disc_dsc"]) / 2
+        current = {"epoch": epoch + 1, "avg_dsc": dsc,
+                   "cup_dsc": vm["cup_dsc"], "disc_dsc": vm["disc_dsc"]}
+    if with_hd and ent.dataset_name == "optic":
         logger.info(
             "Test Epoch {} dsc@cup:{cup_dsc:.4f} dsc@disc:{disc_dsc:.4f}"
             " HD@cup:{cup_hd:.4f} HD@disc:{disc_hd:.4f}".format(epoch, **vm))
@@ -149,9 +167,7 @@ def _search(cfg, device, logger, out_dir, writer):
                                          float(cfg.CONTROLLER.PENALTY))
 
     begin = int(cfg.TRAIN.BEGIN_EPOCH)
-    best = {"dsc": 0.0, "metric": {
-        "epoch": 0, "avg_dsc": 0, "cup_dsc": 0, "disc_dsc": 0, "avg_hd": 0,
-        "cup_hd": 0, "disc_hd": 0}}
+    best = {"dsc": 0.0, "metric": initial_best(ent, with_hd=True)}
     resumed = try_resume(cfg, out_dir, logger)
     if resumed is not None:
         sd.load_state_dict(resumed["sd"])

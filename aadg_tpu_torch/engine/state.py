@@ -10,6 +10,7 @@ has ``state_dict``/``load_state_dict`` for checkpoints.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, List, NamedTuple
 
@@ -18,8 +19,8 @@ import torch
 
 from ..config import CfgNode
 from ..data.transforms import make_train_transform
+from ..models import build_model, class_parser, domain_parser, model_class
 from ..models.controller import Controller, ControllerSpec, spec_from_config
-from ..models.deeplab import DeepLabV3Plus
 from ..models.discriminator import (MomentumFeatureDiscriminator,
                                     build_discriminator)
 from ..ops import augment as aug_mod
@@ -95,6 +96,7 @@ def resolve_search_space(cfg: CfgNode, logger=None) -> List[str]:
 
 
 class Entities(NamedTuple):
+    make_model: Callable      # () -> the segmentation model, freshly initialized
     ctrl_spec: ControllerSpec
     transform: Callable       # (imgs, masks, ScaleCropDraw) -> (x, y)
     scale_range: tuple
@@ -118,7 +120,7 @@ class Entities(NamedTuple):
 
 
 class SegDisState(NamedTuple):
-    model: DeepLabV3Plus
+    model: torch.nn.Module
     disc: MomentumFeatureDiscriminator
     seg_opt: ScheduledAdam
     dis_opt: ScheduledAdam
@@ -152,17 +154,17 @@ class CtrlState(NamedTuple):
 def build_entities(cfg: CfgNode, mode: str = "search",
                    steps_per_epoch: int = 1, device="cuda",
                    logger=None) -> Entities:
-    """What a run builds once from the config. The model's schedule is
-    MultiStepLR (x0.1 at the end of warmup) in search mode and cosine over
-    ``END_EPOCH * steps_per_epoch`` steps otherwise."""
-    if cfg.MODEL.NAME != "deeplabv3+" or cfg.MODEL.BACKBONE != "mobilenet_v2":
-        raise NotImplementedError(
-            f"model {cfg.MODEL.NAME}/{cfg.MODEL.BACKBONE} is not ported yet "
-            "(ROADMAP queue 1, item 7)")
+    """What a run builds once from the config. The model, its number of
+    classes and the discriminator's input width come from the model
+    factory. The model's schedule is MultiStepLR (x0.1 at the end of
+    warmup) in search mode and cosine over ``END_EPOCH * steps_per_epoch``
+    steps otherwise."""
+    feature_dim = model_class(cfg).feature_dim
     if int(cfg.TPU.DATA_PARALLEL) not in (-1, 1):
         raise NotImplementedError(
             "data parallelism is not ported yet (ROADMAP queue 1, item 6)")
     base = "optic" if "optic" in cfg.DATASET.NAME else "rvs"
+    num_classes = class_parser(base)
     transform, scale_range = make_train_transform(
         base, int(cfg.TPU.CROP_SIZE))
     op_names = resolve_search_space(cfg, logger)
@@ -179,10 +181,12 @@ def build_entities(cfg: CfgNode, mode: str = "search",
         schedule = cosine_schedule(
             lr, int(cfg.TRAIN.END_EPOCH) * steps_per_epoch)
     return Entities(
+        make_model=functools.partial(build_model, cfg, num_classes),
         ctrl_spec=spec, transform=transform, scale_range=scale_range,
-        multi_policy=multi_policy, op_names=op_names, n_domains=3,
-        num_classes=2, dis_name=cfg.DISCRIMINATOR.NAME, dataset_name=base,
-        feature_dim=DeepLabV3Plus.feature_dim, lr=lr,
+        multi_policy=multi_policy, op_names=op_names,
+        n_domains=domain_parser(base), num_classes=num_classes,
+        dis_name=cfg.DISCRIMINATOR.NAME, dataset_name=base,
+        feature_dim=feature_dim, lr=lr,
         wd=float(cfg.TRAIN.WD), model_schedule=schedule,
         device=torch.device(device), compute_dtype=dtype)
 
@@ -192,7 +196,7 @@ def init_state(ent: Entities, seed: int):
     (SegDisState, CtrlState). The global RNG is left as it was."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = DeepLabV3Plus(ent.num_classes)
+        model = ent.make_model()
         disc = build_discriminator(ent.dis_name, ent.n_domains,
                                    ent.feature_dim)
         controller = Controller(ent.ctrl_spec)

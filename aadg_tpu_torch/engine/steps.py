@@ -69,11 +69,14 @@ def _flatten(batch):
             masks.reshape(n0, *masks.shape[2:]), dcs.reshape(n0))
 
 
-def _seg_metrics(seg_soft, y):
-    """Thresholded samplewise F1, class-1 entry, per channel."""
+def _seg_metrics(ent: Entities, seg_soft, y):
+    """Thresholded samplewise F1, class-1 entry, per channel: cup and disc
+    for two classes, ``dsc`` for one."""
     hard = (seg_soft > 0.5).float()
-    return {"cup_dsc": samplewise_f1(hard[..., 0], y[..., 0])[1],
-            "disc_dsc": samplewise_f1(hard[..., 1], y[..., 1])[1]}
+    if ent.num_classes == 2:
+        return {"cup_dsc": samplewise_f1(hard[..., 0], y[..., 0])[1],
+                "disc_dsc": samplewise_f1(hard[..., 1], y[..., 1])[1]}
+    return {"dsc": samplewise_f1(hard[..., 0], y[..., 0])[1]}
 
 
 def _forward_seg(ent: Entities, sd: SegDisState, x, y):
@@ -124,7 +127,7 @@ def make_pretrain_step(ent: Entities, step_disc: bool = True):
             sd.seg_opt.step()
             if step_disc:
                 sd.dis_opt.step()
-        return {**metrics, **_seg_metrics(seg_soft.detach(), y)}
+        return {**metrics, **_seg_metrics(ent, seg_soft.detach(), y)}
 
     return step
 
@@ -203,7 +206,7 @@ def make_search_step(ent: Entities, M: int, sinkhorn_blur: float = 0.05,
         metrics = {"seg_loss": seg_loss.detach(),
                    "dis_loss": dis_loss_mon,
                    "diversity_ot": torch.sum(rewards),
-                   **_seg_metrics(seg_soft.detach(), y)}
+                   **_seg_metrics(ent, seg_soft.detach(), y)}
         return metrics, rewards
 
     return step

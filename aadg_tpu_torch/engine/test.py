@@ -1,9 +1,11 @@
 """Test mode (port of ``aadg_tpu/engine/test.py``).
 
-- ``output_type='seg'``: load the trained model, write the thresholded
-  (0.75) cup/disc map of every test image (disc 127, cup 255, as
-  ``(map * 255).astype(uint8)`` of a 0.5/1.0 map) and a per-image F1
-  table ``test_result.csv``.
+- ``output_type='seg'``: load the trained model and write the thresholded
+  map of every test image and a per-image F1 table ``test_result.csv``.
+  Optic: threshold 0.75, the cup/disc map (disc 127, cup 255, as
+  ``(map * 255).astype(uint8)`` of a 0.5/1.0 map), columns ``name,
+  f1_score_avg, f1_score_disc, f1_score_cup``. RVS: threshold 0.5, the
+  binary vessel map (0/255), columns ``name, f1_score``.
 - ``output_type='image'``: load the trained controller, sample 4
   policies, apply them on the device to 8 training images and write the
   32 augmented images.
@@ -24,7 +26,7 @@ import torch
 
 from ..data.datasets import build_dataset, load_test_arrays, load_train_arrays
 from ..data.stores import make_test_store
-from ..data.transforms import optic_mask_to_multilabel
+from ..data.transforms import optic_mask_to_multilabel, vessel_mask_to_binary
 from ..metrics import samplewise_f1
 from ..models.controller import policies_to_tensor
 from ..ops.augment import draw_policy
@@ -68,38 +70,45 @@ def run_test(cfg, cfg_path: str, vis_dir: str = "vis",
     return _augment(cfg, ent, cs.controller, out_dir, seed)
 
 
+def _f1(hard: torch.Tensor, y: torch.Tensor, c: int) -> float:
+    """Dice of channel ``c`` of one (H, W, C) hard mask."""
+    return float(samplewise_f1(hard[None, ..., c], y[None, ..., c])[1])
+
+
 def _segment(cfg, ent, model, out_dir: Path):
-    if ent.dataset_name != "optic":
-        raise NotImplementedError(
-            "rvs test mode is not ported yet (ROADMAP queue 1, item 4)")
     store = make_test_store(*load_test_arrays(build_dataset(cfg, "test")),
                             batch_size=int(cfg.TEST.BATCH_SIZE),
                             device=ent.device)
-    output = {"name": [], "f1_score_avg": [], "f1_score_disc": [],
-              "f1_score_cup": []}
+    optic = ent.dataset_name == "optic"
+    threshold = 0.75 if optic else 0.5
+    to_label = optic_mask_to_multilabel if optic else vessel_mask_to_binary
+    output = ({"name": [], "f1_score_avg": [], "f1_score_disc": [],
+               "f1_score_cup": []} if optic
+              else {"name": [], "f1_score": []})
     bs = int(cfg.TEST.BATCH_SIZE)
     n = store.n_real
     for lo in range(0, n, bs):
         hi = min(lo + bs, n)
         soft = eval_forward(ent, model, store.images[lo:lo + bs])[:hi - lo]
-        hard = (soft > 0.75).float()
-        y = optic_mask_to_multilabel(store.labels[lo:hi].float())
+        hard = (soft > threshold).float()
+        y = to_label(store.labels[lo:hi].float())
         for j in range(hi - lo):
-            cup = float(samplewise_f1(hard[j:j + 1, ..., 0],
-                                      y[j:j + 1, ..., 0])[1])
-            disc = float(samplewise_f1(hard[j:j + 1, ..., 1],
-                                       y[j:j + 1, ..., 1])[1])
-            # composite map: disc 0.5, cup 1.0
-            h_np = hard[j].cpu().numpy()
-            seg_map = np.where(h_np[..., 1] == 1, 0.5, 0.0)
-            seg_map = np.where(h_np[..., 0] == 1, 1.0, seg_map)
             name = store.names[lo + j]
+            h_np = hard[j].cpu().numpy()
+            if optic:
+                cup, disc = _f1(hard[j], y[j], 0), _f1(hard[j], y[j], 1)
+                # composite map: disc 0.5, cup 1.0
+                seg_map = np.where(h_np[..., 1] == 1, 0.5, 0.0)
+                seg_map = np.where(h_np[..., 0] == 1, 1.0, seg_map)
+                output["f1_score_cup"].append(cup)
+                output["f1_score_disc"].append(disc)
+                output["f1_score_avg"].append((cup + disc) / 2)
+            else:
+                seg_map = h_np[..., 0]
+                output["f1_score"].append(_f1(hard[j], y[j], 0))
+            output["name"].append(name)
             write_png(out_dir / (name[:-3] + "png"),
                       (seg_map * 255).astype(np.uint8))
-            output["name"].append(name)
-            output["f1_score_cup"].append(cup)
-            output["f1_score_disc"].append(disc)
-            output["f1_score_avg"].append((cup + disc) / 2)
     with open(out_dir / "test_result.csv", "w", newline="") as f:
         table = csv.writer(f)
         table.writerow(list(output))

@@ -24,8 +24,8 @@ from ..models.controller import policies_to_tensor
 from ..data.stores import draw_batch_indices, gather_batch
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, save_json
 from ..utils.logging import run_logging
-from .search import (load_stores, set_precision_flags, sync, try_resume,
-                     validate_and_track)
+from .search import (initial_best, load_stores, set_precision_flags, sync,
+                     try_resume, validate_and_track)
 from .state import build_entities, init_state
 from .steps import (draw_pretrain, draw_train, make_autoaug_train_step,
                     make_pretrain_step)
@@ -65,8 +65,7 @@ def _train(cfg, device, logger, out_dir, writer):
         step_fn = make_pretrain_step(ent, step_disc=False)
 
     begin = int(cfg.TRAIN.BEGIN_EPOCH)
-    best = {"dsc": 0.0, "metric": {"epoch": 0, "avg_dsc": 0.0,
-                                   "cup_dsc": 0.0, "disc_dsc": 0.0}}
+    best = {"dsc": 0.0, "metric": initial_best(ent, with_hd=False)}
     resumed = try_resume(cfg, out_dir, logger)
     if resumed is not None:
         sd.load_state_dict(resumed["sd"])

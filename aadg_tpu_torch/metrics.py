@@ -1,8 +1,8 @@
-"""Optic metrics (port of ``aadg_tpu/metrics.py``): ``samplewise_f1``
-(:29-53) and ``dice_coef`` (:56-63) in torch, and the hd95 family
-(:128-162), which runs on the host with numpy and scipy as in the
-reference. The rvs metrics (AUROC, accuracy, specificity, sensitivity)
-wait for the rvs task."""
+"""Metrics (port of ``aadg_tpu/metrics.py``): ``samplewise_f1`` (:29-53)
+and ``dice_coef`` (:56-63) in torch; the rvs binary metrics ``auroc``,
+``accuracy_score``, ``specificity`` and ``sensitivity`` at threshold 0.5,
+ROI-maskable (:70-121), and the optic hd95 family (:128-162), which run on
+the host with numpy and scipy as in the reference."""
 
 from __future__ import annotations
 
@@ -42,6 +42,55 @@ def dice_coef(pred: torch.Tensor, target: torch.Tensor,
     inter = torch.sum(pred * target, dim=axes)
     card = torch.sum(pred, dim=axes) + torch.sum(target, dim=axes)
     return 2.0 * inter / (card + eps)
+
+
+def _masked(arr, mask) -> np.ndarray:
+    arr = np.asarray(arr).reshape(-1)
+    if mask is None:
+        return arr
+    return arr[np.asarray(mask).reshape(-1).astype(bool)]
+
+
+def auroc(scores, labels, mask=None) -> float:
+    """Exact binary AUROC: Mann-Whitney U with average ranks for tied
+    scores; nan when one class is empty. Each run of equal scores gets the
+    mean of the 1-based ranks it spans."""
+    s = _masked(scores, mask).astype(np.float64)
+    y = _masked(labels, mask).astype(np.int64)
+    n_pos = int(y.sum())
+    n_neg = int(y.size - n_pos)
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    _, run, counts = np.unique(s, return_inverse=True, return_counts=True)
+    ends = np.cumsum(counts)                     # rank of a run's last score
+    ranks = (ends - 0.5 * (counts - 1))[run.reshape(-1)].astype(np.float64)
+    r_pos = ranks[y == 1].sum()
+    return float((r_pos - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def accuracy_score(scores, labels, mask=None, threshold=0.5) -> float:
+    s = _masked(scores, mask)
+    y = _masked(labels, mask)
+    return float(np.mean((s > threshold).astype(np.int64)
+                         == y.astype(np.int64)))
+
+
+def specificity(scores, labels, mask=None, threshold=0.5) -> float:
+    """TN / (TN + FP)."""
+    p = _masked(scores, mask) > threshold
+    y = _masked(labels, mask).astype(bool)
+    tn = np.sum(~p & ~y)
+    fp = np.sum(p & ~y)
+    return float(tn / max(tn + fp, 1))
+
+
+def sensitivity(scores, labels, mask=None, threshold=0.5) -> float:
+    """TP / (TP + FN)."""
+    p = _masked(scores, mask) > threshold
+    y = _masked(labels, mask).astype(bool)
+    tp = np.sum(p & y)
+    fn = np.sum(~p & y)
+    return float(tp / max(tp + fn, 1))
 
 
 def _surface(arr: np.ndarray) -> np.ndarray:

@@ -8,8 +8,11 @@
         --output_type {seg,image} [--vis_dir DIR] TEST.MODEL_DIR <run dir>
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises when
-no card is visible and the CPU was not asked for. Only the optic task is
-ported so far.
+no card is visible and the CPU was not asked for. Both tasks run on the
+synthetic pools: optic (``DATASET.NAME synthetic_optic``) and rvs
+(``--cfg experiments/rvs_sinkhorn/diversity_ex.yaml DATASET.NAME
+synthetic_rvs TPU.SYNTHETIC_SIZE 512``); the Fundus and RVS disk readers
+are not ported yet.
 """
 
 from __future__ import annotations

@@ -9,27 +9,37 @@ exit code:
 2. build: nvcc on aadg_tpu_torch/csrc/*.cu (all sources at once, sm_90a),
    with the build time and the -Xptxas -v summary;
 3. kernels: K1 (softmin), sinkhorn_solve, K2 (hist3) and K3 (lut_apply3)
-   held to their plain PyTorch versions at the main path's shapes (K2/K3
-   exactly, K1 and sinkhorn_solve within rtol 1e-5 / atol 1e-6; K1 also on
-   one 4096 x 4096 x 128 cloud, sinkhorn_solve also on a ragged weighted
-   case and at its size limit), then timed with CUDA events beside the
-   plain version, one library call where one exists, and the least time
-   the card could take (bound); sinkhorn_solve also beside the 26-launch
-   K1 route it replaced on the main path, with the device time per call of
-   both from torch.profiler. K1 is driven through its own route (a
+   held to their plain PyTorch versions at the main paths' shapes (K2/K3
+   exactly, at 144x256^2x3 (optic) and 144x512^2x3 (rvs); K1 and
+   sinkhorn_solve within rtol 1e-5 / atol 1e-6; K1 also on one 4096 x 4096
+   x 128 cloud, sinkhorn_solve also on a ragged weighted case and at its
+   size limit), then timed with CUDA events beside the plain version, one
+   library call where one exists, and the least time the card could take
+   (bound); sinkhorn_solve also beside the 26-launch K1 route it replaced
+   on the main path, with the device time per call of both from
+   torch.profiler. K1 is driven through its own route (a
    sinkhorn_divergence above SOLVE_MAX_POINTS), and the rewards' call
-   pairwise_domain_ot runs under torch.cuda.set_sync_debug_mode("error");
+   pairwise_domain_ot runs under torch.cuda.set_sync_debug_mode("error").
+   K2 and K3 are also timed at 144x512^2x3 on the images an rvs search
+   step hands them (slot 1: the pool images, slot 2: the images after the
+   first op);
+
+then, for each task (optic: experiments/optic_sinkhorn/diversity.yaml on
+synthetic_optic at 256^2; rvs: experiments/rvs_sinkhorn/diversity_ex.yaml
+on synthetic_rvs at 512^2; both DeepLabV3+/MobileNetV2, B=8 x 3 domains x
+M=6 policies, crop 256):
+
 4. reference: one search step on the card (kernels) and on the CPU (plain
-   versions) from the same weights, batch and draws at crop 64 in f32;
+   versions) from the same weights, batch and draws at crop 64 in f32
+   (optic pools 64^2, rvs pools 128^2, so rvs draws scales below 1);
    losses within rtol 1e-4 and rewards within rtol 1e-3;
-5. main path (search): ``python -m aadg_tpu_torch.run --mode search`` on
-   the flagship config (experiments/optic_sinkhorn/diversity.yaml:
-   DeepLabV3+/MobileNetV2, B=8 x 3 domains x M=6 policies, crop 256) on
-   synthetic_optic at 256^2, one warmup and two search epochs of two
-   steps, validating after every epoch and checkpointing every search
-   epoch; sinkhorn_solve must have been launched once per search step, K1
-   never, K2 and K3 at least once, every loss and reward must be finite,
-   final_result.json must hold dice in [0, 1] and hd95 in [0, 100], and
+5. search path: ``python -m aadg_tpu_torch.run --mode search`` at full
+   width, one warmup and two search epochs of two steps, validating after
+   every epoch and checkpointing every search epoch; sinkhorn_solve must
+   have been launched once per search step, K1 never, K2 and K3 L=2 times
+   per search step, every loss, reward and validation number must be
+   finite (the synthetic rvs ROIs hold both classes, so AUROC is defined),
+   final_result.json must hold its task's keys in range, and
    final_controller_state.pt must load;
 6. train path: ``--mode train TPU.AUTOAUGMENT True TEST.MODEL_DIR <search
    run>`` at the same width, two epochs of three steps; K2 and K3 exactly
@@ -40,16 +50,19 @@ exit code:
    outcome of its coin; losses within rtol 1e-4;
 8. test path: ``--mode test --output_type seg`` from the train run (4
    PNG maps and the CSV table) and ``--output_type image`` from the search
-   run (32 augmented images); K2 and K3 must have launched;
-9. profile: three more flagship search steps and three train steps under
-   torch.profiler, each after two warm-up steps and one step run under
-   torch.cuda.set_sync_debug_mode("error") (any synchronizing call fails
-   the run), with the device time per kernel category, the device's idle
-   share, the host and device time of each stage, and the stream
+   run (32 augmented images); K2 and K3 exactly L=2 launches (the image
+   call), the others none;
+9. profile: three more full-width search steps and three train steps
+   under torch.profiler, each after two warm-up steps and one step run
+   under torch.cuda.set_sync_debug_mode("error") (any synchronizing call
+   fails the run), with the device time per kernel category, the device's
+   idle share, the host and device time of each stage, and the stream
    synchronizations and host-to-device copies per step.
 
 Every path runs with each kernel's launch counter set to 0 just before it
-and read just after; the kernels line gives the counts per path.
+and read just after; the kernels line gives the counts per path (optic
+``search``/``train``/``test``, rvs ``rvs_search``/``rvs_train``/
+``rvs_test``).
 
 Then a line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when no
@@ -66,6 +79,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -73,12 +87,26 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
-CFG_PATH = "experiments/optic_sinkhorn/diversity.yaml"
 OUT_DIR = Path("output/chip_smoke")
-# the flagship config on synthetic_optic at 256^2 (the Fundus data is not
-# in the repo)
-DATA_OPTS = ["DATASET.NAME", "synthetic_optic", "TPU.SYNTHETIC_SIZE", "256"]
-FULL_WIDTH = [*DATA_OPTS, "LOG_DIR", str(OUT_DIR / "log")]
+L = 2  # ops per sub-policy: one switcher call, one K2 and one K3 each
+
+
+class Task(NamedTuple):
+    name: str        # "optic" or "rvs"
+    cfg: str         # the experiment file
+    data: list       # overrides selecting the synthetic pools
+    ref_size: int    # pool side of the crop-64 card == CPU references
+    prefix: str      # of the launch-count paths and the log tags
+
+
+# the flagship configs on the synthetic pools at each task's native
+# resolution (the Fundus and RVS data are not in the repo)
+OPTIC = Task("optic", "experiments/optic_sinkhorn/diversity.yaml",
+             ["DATASET.NAME", "synthetic_optic", "TPU.SYNTHETIC_SIZE", "256"],
+             64, "")
+RVS = Task("rvs", "experiments/rvs_sinkhorn/diversity_ex.yaml",
+           ["DATASET.NAME", "synthetic_rvs", "TPU.SYNTHETIC_SIZE", "512"],
+           128, "rvs_")
 
 
 def log(msg: str) -> None:
@@ -126,56 +154,109 @@ def phase_build():
         log(f"[build] {name}: {sec:.1f} s; " + " | ".join(summary))
 
 
-def phase_kernels(dev):
-    from aadg_tpu_torch.ops import lut, sinkhorn
-    gen = torch.Generator(dev).manual_seed(0)
-    rows = []
-
-    # K2 / K3 at the slot shape of the main path: 144 images of 256^2
-    n, h, w = 144, 256, 256
-    imgs = torch.randint(0, 256, (n, h, w, 3), generator=gen,
-                         device=dev).float()
+def lut_timings(imgs: torch.Tensor, luts: torch.Tensor) -> dict:
+    """K2 and K3 on (N, H, W, 3) images and (N, 3, 256) LUTs: each held
+    exactly to its plain version, then timed beside it, one library call
+    that computes the same function, and its byte bound."""
+    from aadg_tpu_torch.ops import lut
+    n, h, w, _ = imgs.shape
+    dev = imgs.device
     hist = lut.hist3(imgs)
     torch.cuda.synchronize()
-    ref = lut.hist3_plain(imgs)
-    if not torch.equal(hist, ref):
-        raise AssertionError("hist3 kernel disagrees with its plain version")
-    luts = torch.randint(0, 256, (n, 3, 256), generator=gen,
-                         device=dev).float()
+    if not torch.equal(hist, lut.hist3_plain(imgs)):
+        raise AssertionError(f"hist3 kernel disagrees with its plain version "
+                             f"at {n}x{h}x{w}x3")
     out = lut.lut_apply3(imgs, luts)
     torch.cuda.synchronize()
     if not torch.equal(out, lut.lut_apply3_plain(imgs, luts)):
-        raise AssertionError("lut_apply3 kernel disagrees with its plain "
-                             "version")
+        raise AssertionError(f"lut_apply3 kernel disagrees with its plain "
+                             f"version at {n}x{h}x{w}x3")
+    del hist, out
     vals = imgs.long().reshape(n, -1)
     chan = torch.arange(vals.shape[1], device=dev) % 3
     codes_hist = (torch.arange(n, device=dev)[:, None] * 768 + chan * 256
                   + vals).reshape(-1)
     codes_lut = (chan * 256 + vals).contiguous()
+    del vals
     lut_flat = luts.reshape(n, 768)
     px = n * h * w * 3
-    for name, kern, plain, lib, nbytes, nops, src, tpu in (
+    res = {}
+    for name, kern, plain, lib, nbytes in (
             ("hist3", lambda: lut.hist3(imgs), lambda: lut.hist3_plain(imgs),
              lambda: torch.bincount(codes_hist, minlength=n * 768),
-             4 * px + 4 * n * 768, px,
-             "aadg_tpu_torch/csrc/hist3.cu",
-             "aadg_tpu/ops/lut_pallas.py:79"),
+             4 * px + 4 * n * 768),
             ("lut_apply3", lambda: lut.lut_apply3(imgs, luts),
              lambda: lut.lut_apply3_plain(imgs, luts),
              lambda: torch.gather(lut_flat, 1, codes_lut),
-             8 * px + 4 * n * 768, px,
-             "aadg_tpu_torch/csrc/lut_apply3.cu",
-             "aadg_tpu/ops/lut_pallas.py:95")):
-        b, by = bound_ms(nbytes, nops)
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu, "launches": 0, "max_abs_err": 0.0,
-                     "ms": time_ms(kern), "plain_ms": time_ms(plain),
+             8 * px + 4 * n * 768)):
+        b, by = bound_ms(nbytes, px)
+        res[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
                      "bound_ms": b, "bound_by": by,
-                     "library_ms": time_ms(lib),
-                     "shape": [n, h, w, 3]})
-        log(f"[kernels] {name} exact at {n}x{h}x{w}x3: "
-            f"{rows[-1]['ms']:.4f} ms (plain {rows[-1]['plain_ms']:.4f}, "
-            f"library {rows[-1]['library_ms']:.4f}, bound {b:.4f} by {by})")
+                     "library_ms": time_ms(lib), "max_abs_err": 0.0,
+                     "shape": [n, h, w, 3]}
+    return res
+
+
+def log_lut(tag: str, res: dict) -> None:
+    for name, r in res.items():
+        log(f"[kernels] {name} exact at {'x'.join(map(str, r['shape']))} "
+            f"({tag}): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']})")
+
+
+def rvs_slot_inputs(dev) -> list:
+    """The (images, LUTs) that one full-width rvs search step hands K3 in
+    each of its L slots (K2 gets the same images)."""
+    from types import SimpleNamespace
+    from aadg_tpu_torch.ops import augment, lut
+    one = flagship_step(dev, "search", RVS)
+    seen = []
+
+    def recording(img, luts):
+        seen.append((img, luts))
+        return lut.lut_apply3(img, luts)
+    # the switcher reaches the kernels through its module handle
+    augment._lut = SimpleNamespace(hist3=lut.hist3, lut_apply3=recording)
+    try:
+        one()
+    finally:
+        augment._lut = lut
+    torch.cuda.synchronize()
+    if len(seen) != L:
+        raise AssertionError(f"an rvs search step made {len(seen)} K3 calls")
+    return seen
+
+
+def phase_kernels(dev):
+    from aadg_tpu_torch.ops import sinkhorn
+    gen = torch.Generator(dev).manual_seed(0)
+    rows = []
+
+    # K2 / K3 at the slot shapes of the main paths: 144 images of 256^2
+    # (optic) and 512^2 (rvs), uniform random values, and the rvs search
+    # step's own images
+    def uniform(side):
+        return (torch.randint(0, 256, (144, side, side, 3), generator=gen,
+                              device=dev).float(),
+                torch.randint(0, 256, (144, 3, 256), generator=gen,
+                              device=dev).float())
+    optic = lut_timings(*uniform(256))
+    log_lut("optic shape, uniform values", optic)
+    rvs = {"uniform": lut_timings(*uniform(512))}
+    log_lut("rvs shape, uniform values", rvs["uniform"])
+    for i, (img, luts) in enumerate(rvs_slot_inputs(dev)):
+        rvs[f"path_slot{i + 1}"] = lut_timings(img, luts)
+        log_lut(f"rvs search step, slot {i + 1} inputs",
+                rvs[f"path_slot{i + 1}"])
+    for name, src, tpu in (
+            ("hist3", "aadg_tpu_torch/csrc/hist3.cu",
+             "aadg_tpu/ops/lut_pallas.py:79"),
+            ("lut_apply3", "aadg_tpu_torch/csrc/lut_apply3.cu",
+             "aadg_tpu/ops/lut_pallas.py:95")):
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": tpu, "launches": 0, **optic[name],
+                     "rvs_512": {k: v[name] for k, v in rvs.items()}})
 
     def softmin_case(p, nn, m, d):
         xn = sinkhorn.normalize_rows(torch.randn(p, nn, d, generator=gen,
@@ -346,24 +427,33 @@ def check_rewards_never_sync(dev, gen):
         "equal to the CPU within rtol 1e-5")
 
 
-def phase_reference(dev):
-    """One search step on the card and on the CPU from the same state."""
-    from aadg_tpu_torch.config import load_config
+def reference_batch(task: Task):
+    """One image per domain of the task's synthetic pools at
+    ``task.ref_size``^2, as a (1, 3, S, S, 3) batch."""
     from aadg_tpu_torch.data.datasets import SyntheticDataset
-    from aadg_tpu_torch.engine import state, steps
-    cfg = load_config(CFG_PATH, [
-        "DATASET.NAME", "synthetic_optic", "TPU.CROP_SIZE", "64",
-        "TRAIN.BATCH_SIZE", "1", "CONTROLLER.M", "2",
-        "TPU.COMPUTE_DTYPE", "float32"])
-    ds = SyntheticDataset("optic", n_per_domain=1, size=64)
+    ds = SyntheticDataset(task.name, n_per_domain=1, size=task.ref_size)
     imgs = torch.stack([torch.from_numpy(d.images[0]) for d in ds.domains])
     masks = torch.stack([torch.from_numpy(d.labels[0]) for d in ds.domains])
-    batch = (imgs[None].float(), masks[None].float(),
-             torch.arange(3)[None])
+    return (imgs[None].float(), masks[None].float(), torch.arange(3)[None])
+
+
+def reference_cfg(task: Task, extra=()):
+    from aadg_tpu_torch.config import load_config
+    return load_config(task.cfg, [
+        "DATASET.NAME", task.data[1], "TPU.CROP_SIZE", "64",
+        "TRAIN.BATCH_SIZE", "1", "TPU.COMPUTE_DTYPE", "float32", *extra])
+
+
+def phase_reference(dev, task: Task):
+    """One search step on the card and on the CPU from the same state."""
+    from aadg_tpu_torch.engine import state, steps
+    cfg = reference_cfg(task, ["CONTROLLER.M", "2"])
+    batch = reference_batch(task)
+    s = task.ref_size
     pol = torch.randint(0, 10, (2, 5, 2, 2),
                         generator=torch.Generator().manual_seed(1))
     ent_cpu = state.build_entities(cfg, "search", 1, "cpu")
-    draws = steps.draw_search(ent_cpu, 3, 2, 64, 64,
+    draws = steps.draw_search(ent_cpu, 3, 2, s, s,
                               torch.Generator().manual_seed(2))
     results = {}
     for device in ("cpu", dev):
@@ -380,9 +470,12 @@ def phase_reference(dev):
     (m_cpu, r_cpu), (m_gpu, r_gpu) = results["cpu"], results[str(dev)]
     for k in ("seg_loss", "dis_loss"):
         if not math.isclose(m_gpu[k], m_cpu[k], rel_tol=1e-4):
-            raise AssertionError(f"{k}: card {m_gpu[k]} vs cpu {m_cpu[k]}")
+            raise AssertionError(f"{task.name} {k}: card {m_gpu[k]} vs cpu "
+                                 f"{m_cpu[k]}")
     torch.testing.assert_close(r_gpu, r_cpu, rtol=1e-3, atol=1e-6)
-    log(f"[reference] search step at crop 64: card == cpu "
+    scales = torch.cat([draws.crop.sw, draws.crop.sh])
+    log(f"[{task.prefix}reference] search step at crop 64 from {s}^2 pools "
+        f"(scales {scales.min():.3f}-{scales.max():.3f}): card == cpu "
         f"(seg_loss {m_gpu['seg_loss']:.6f} vs {m_cpu['seg_loss']:.6f}, "
         f"rewards {r_gpu.tolist()} vs {r_cpu.tolist()})")
 
@@ -394,7 +487,7 @@ def launch_counters() -> dict:
             "sinkhorn_solve": sinkhorn.sinkhorn_solve}
 
 
-def drive(flags, opts=()):
+def drive(task: Task, flags, opts=()):
     """``python -m aadg_tpu_torch.run <flags> KEY VALUE ...`` in process,
     on the card, at full width, with every launch counter set to 0 just
     before; returns (its result, the launches it made)."""
@@ -402,16 +495,17 @@ def drive(flags, opts=()):
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
-    out = run.main(["--cfg", CFG_PATH, "--output_dir", str(OUT_DIR), *flags,
-                    *FULL_WIDTH, *opts])
+    out = run.main(["--cfg", task.cfg, "--output_dir", str(OUT_DIR), *flags,
+                    *task.data, "LOG_DIR", str(OUT_DIR / "log"), *opts])
     return out, {k: fn.launches for k, fn in counters.items()}
 
 
 def check_launches(path: str, launches: dict, expect: dict) -> None:
+    """``expect``: the exact launch count of every kernel on ``path``."""
     for k, v in launches.items():
-        if not expect[k](v):
+        if v != expect[k]:
             raise AssertionError(f"kernel {k} launched {v} times on the "
-                                 f"{path} path")
+                                 f"{path} path, expected {expect[k]}")
 
 
 def check_epochs(summary) -> None:
@@ -424,10 +518,13 @@ def check_epochs(summary) -> None:
             raise AssertionError(f"non-finite values in epoch {e}")
 
 
-def check_final_result(run_dir: str, with_hd: bool) -> dict:
+def check_final_result(run_dir: str, task: Task, with_hd: bool) -> dict:
     res = json.loads((Path(run_dir) / "final_result.json").read_text())
-    keys = ["avg_dsc", "cup_dsc", "disc_dsc"] + (
-        ["avg_hd", "cup_hd", "disc_hd"] if with_hd else [])
+    if task.name == "optic":
+        keys = ["avg_dsc", "cup_dsc", "disc_dsc"] + (
+            ["avg_hd", "cup_hd", "disc_hd"] if with_hd else [])
+    else:
+        keys = ["dsc", "acc", "aucroc", "sp", "se"]
     for k in keys:
         top = 100.0 if k.endswith("hd") else 1.0
         if not (math.isfinite(res[k]) and 0.0 <= res[k] <= top):
@@ -444,21 +541,21 @@ def epoch_costs(summary) -> str:
                 for e in summary["epochs"] if "checkpoint_seconds" in e]))
 
 
-def phase_main_path(dev):
+def phase_search_path(dev, task: Task):
     from aadg_tpu_torch.utils.checkpoint import load_checkpoint
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     summary, launches = drive(
-        ["--mode", "search"], ["TRAIN.WARMUP_EPOCH", "1", "TRAIN.END_EPOCH",
-                               "3", "TPU.STEPS_PER_EPOCH", "2"])
+        task, ["--mode", "search"], ["TRAIN.WARMUP_EPOCH", "1",
+                                     "TRAIN.END_EPOCH", "3",
+                                     "TPU.STEPS_PER_EPOCH", "2"])
     wall = time.perf_counter() - t0
     n_steps = len(summary["search_step_seconds"])
-    check_launches("search", launches, {
-        "sinkhorn_solve": lambda v: v == n_steps,
-        "softmin": lambda v: v == 0,
-        "hist3": lambda v: v > 0, "lut_apply3": lambda v: v > 0})
+    check_launches(task.prefix + "search", launches, {
+        "sinkhorn_solve": n_steps, "softmin": 0, "hist3": L * n_steps,
+        "lut_apply3": L * n_steps})
     check_epochs(summary)
-    res = check_final_result(summary["out_dir"], with_hd=True)
+    res = check_final_result(summary["out_dir"], task, with_hd=True)
     ctrl = load_checkpoint(str(Path(summary["out_dir"])
                                / "final_controller_state.pt"))["controller"]
     if not all(torch.isfinite(v).all() for v in ctrl.values()):
@@ -467,33 +564,33 @@ def phase_main_path(dev):
     imgs = summary["images_per_search_step"]
     med = statistics.median(steps)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    log(f"[main path] run_search: {len(summary['epochs'])} epochs in "
-        f"{wall:.1f} s; search step median {med * 1e3:.1f} ms over "
+    tag = f"[{task.prefix}search path]"
+    log(f"{tag} run_search ({task.name}): {len(summary['epochs'])} epochs "
+        f"in {wall:.1f} s; search step median {med * 1e3:.1f} ms over "
         f"{len(steps)} steps ({imgs} images, {imgs / med:.1f} img/s; "
         f"steps {[round(s * 1e3, 1) for s in steps]} ms); peak memory "
         f"{peak:.2f} GiB; launches {launches}")
-    log(f"[main path] validation every epoch ({epoch_costs(summary)}); "
+    log(f"{tag} validation every epoch ({epoch_costs(summary)}); "
         f"last {summary['epochs'][-1]['valid']}; final_result.json {res}; "
         f"final_controller_state.pt loads ({len(ctrl)} tensors)")
     return launches, summary["out_dir"]
 
 
-def phase_train_path(dev, search_dir: str):
+def phase_train_path(dev, task: Task, search_dir: str):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     summary, launches = drive(
-        ["--mode", "train"], ["TPU.AUTOAUGMENT", "True", "TEST.MODEL_DIR",
-                              search_dir, "TRAIN.END_EPOCH", "2",
-                              "TPU.STEPS_PER_EPOCH", "3"])
+        task, ["--mode", "train"], ["TPU.AUTOAUGMENT", "True",
+                                    "TEST.MODEL_DIR", search_dir,
+                                    "TRAIN.END_EPOCH", "2",
+                                    "TPU.STEPS_PER_EPOCH", "3"])
     wall = time.perf_counter() - t0
     steps = summary["train_step_seconds"]
-    L = 2  # ops per sub-policy: one switcher call, one K2 and one K3 each
-    check_launches("train", launches, {
-        "sinkhorn_solve": lambda v: v == 0, "softmin": lambda v: v == 0,
-        "hist3": lambda v: v == L * len(steps),
-        "lut_apply3": lambda v: v == L * len(steps)})
+    check_launches(task.prefix + "train", launches, {
+        "sinkhorn_solve": 0, "softmin": 0, "hist3": L * len(steps),
+        "lut_apply3": L * len(steps)})
     check_epochs(summary)
-    res = check_final_result(summary["out_dir"], with_hd=False)
+    res = check_final_result(summary["out_dir"], task, with_hd=False)
     text = (Path(summary["out_dir"]) / "train.log").read_text()
     if "autoaugment: loaded controller" not in text:
         raise AssertionError("the train run did not load the searched "
@@ -501,34 +598,27 @@ def phase_train_path(dev, search_dir: str):
     imgs = summary["images_per_train_step"]
     med = statistics.median(steps)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    log(f"[train path] run_train (autoaugment): {len(summary['epochs'])} "
-        f"epochs in {wall:.1f} s; train step median {med * 1e3:.1f} ms "
-        f"over {len(steps)} steps ({imgs} images, {imgs / med:.1f} img/s; "
-        f"steps {[round(s * 1e3, 1) for s in steps]} ms); peak memory "
-        f"{peak:.2f} GiB; launches {launches}; {epoch_costs(summary)}; "
-        f"final_result.json {res}")
+    log(f"[{task.prefix}train path] run_train ({task.name}, autoaugment): "
+        f"{len(summary['epochs'])} epochs in {wall:.1f} s; train step "
+        f"median {med * 1e3:.1f} ms over {len(steps)} steps ({imgs} images, "
+        f"{imgs / med:.1f} img/s; steps {[round(s * 1e3, 1) for s in steps]}"
+        f" ms); peak memory {peak:.2f} GiB; launches {launches}; "
+        f"{epoch_costs(summary)}; final_result.json {res}")
     return launches, summary["out_dir"]
 
 
-def phase_train_reference(dev):
+def phase_train_reference(dev, task: Task):
     """One autoaugment train step on the card and on the CPU from the same
     state, batch, policy and draws, for each outcome of the coin."""
-    from aadg_tpu_torch.config import load_config
-    from aadg_tpu_torch.data.datasets import SyntheticDataset
     from aadg_tpu_torch.engine import state, steps
-    cfg = load_config(CFG_PATH, [
-        "DATASET.NAME", "synthetic_optic", "TPU.CROP_SIZE", "64",
-        "TRAIN.BATCH_SIZE", "1", "TPU.COMPUTE_DTYPE", "float32"])
-    ds = SyntheticDataset("optic", n_per_domain=1, size=64)
-    imgs = torch.stack([torch.from_numpy(d.images[0]) for d in ds.domains])
-    masks = torch.stack([torch.from_numpy(d.labels[0]) for d in ds.domains])
-    batch = (imgs[None].float(), masks[None].float(),
-             torch.arange(3)[None])
+    cfg = reference_cfg(task)
+    batch = reference_batch(task)
+    s = task.ref_size
     pol = torch.randint(0, 10, (1, 5, 2, 2),
                         generator=torch.Generator().manual_seed(1))
     pol[0, :, 0, 0] = torch.tensor([0, 2, 0, 2, 0])  # AutoContrast, Equalize
     ent_cpu = state.build_entities(cfg, "train", 1, "cpu")
-    draws = steps.draw_train(ent_cpu, 3, 64, 64,
+    draws = steps.draw_train(ent_cpu, 3, s, s,
                              torch.Generator().manual_seed(2))
     for coin in (0.75, 0.25):
         results = {}
@@ -546,49 +636,53 @@ def phase_train_reference(dev):
         m_cpu, m_gpu = results["cpu"], results[str(dev)]
         if not math.isclose(m_gpu["seg_loss"], m_cpu["seg_loss"],
                             rel_tol=1e-4):
-            raise AssertionError(f"coin {coin}: seg_loss card "
+            raise AssertionError(f"{task.name} coin {coin}: seg_loss card "
                                  f"{m_gpu['seg_loss']} vs cpu "
                                  f"{m_cpu['seg_loss']}")
-        log(f"[train reference] autoaugment train step at crop 64, coin "
-            f"{coin} ({'augmented' if coin > 0.5 else 'raw'} batch): card "
-            f"== cpu within rtol 1e-4 (seg_loss {m_gpu['seg_loss']:.6f} vs "
-            f"{m_cpu['seg_loss']:.6f}; dice card {m_gpu['cup_dsc']:.4f}/"
-            f"{m_gpu['disc_dsc']:.4f}, cpu {m_cpu['cup_dsc']:.4f}/"
-            f"{m_cpu['disc_dsc']:.4f})")
+        dice = lambda m: "/".join(f"{v:.4f}" for k, v in m.items()
+                                  if k.endswith("dsc"))
+        log(f"[{task.prefix}train reference] autoaugment train step at crop "
+            f"64 from {s}^2 pools, coin {coin} "
+            f"({'augmented' if coin > 0.5 else 'raw'} batch): card == cpu "
+            f"within rtol 1e-4 (seg_loss {m_gpu['seg_loss']:.6f} vs "
+            f"{m_cpu['seg_loss']:.6f}; dice card {dice(m_gpu)}, cpu "
+            f"{dice(m_cpu)})")
 
 
-def phase_test_path(train_dir: str, search_dir: str):
-    seg_dir, img_dir = OUT_DIR / "vis_seg", OUT_DIR / "vis_image"
+def phase_test_path(task: Task, train_dir: str, search_dir: str):
+    seg_dir = OUT_DIR / f"{task.name}_vis_seg"
+    img_dir = OUT_DIR / f"{task.name}_vis_image"
     for d in (seg_dir, img_dir):
         shutil.rmtree(d, ignore_errors=True)
     t0 = time.perf_counter()
     table, seg_launches = drive(
-        ["--mode", "test", "--output_type", "seg", "--vis_dir",
-         str(seg_dir)], ["TEST.MODEL_DIR", train_dir])
+        task, ["--mode", "test", "--output_type", "seg", "--vis_dir",
+               str(seg_dir)], ["TEST.MODEL_DIR", train_dir])
     t_seg = time.perf_counter() - t0
     res, img_launches = drive(
-        ["--mode", "test", "--output_type", "image", "--vis_dir",
-         str(img_dir)], ["TEST.MODEL_DIR", search_dir])
+        task, ["--mode", "test", "--output_type", "image", "--vis_dir",
+               str(img_dir)], ["TEST.MODEL_DIR", search_dir])
     wall = time.perf_counter() - t0
     launches = {k: seg_launches[k] + img_launches[k] for k in seg_launches}
-    check_launches("test", launches, {
-        "sinkhorn_solve": lambda v: v == 0, "softmin": lambda v: v == 0,
-        "hist3": lambda v: v > 0, "lut_apply3": lambda v: v > 0})
+    check_launches(task.prefix + "test", launches, {
+        "sinkhorn_solve": 0, "softmin": 0, "hist3": L, "lut_apply3": L})
     maps = sorted(p.name for p in seg_dir.glob("*.png"))
     if maps != sorted(table["name"]) or len(maps) != 4 or not (
             seg_dir / "test_result.csv").exists():
         raise AssertionError(f"test seg wrote {sorted(seg_dir.iterdir())}")
-    f1 = [v for k in ("f1_score_avg", "f1_score_disc", "f1_score_cup")
-          for v in table[k]]
+    f1 = [v for k, vs in table.items() if k != "name" for v in vs]
     if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in f1):
         raise AssertionError(f"test seg F1 {table}")
     n_img = len(list(img_dir.glob("sample*.png")))
     if res != {"n_images": 32} or n_img != 32:
         raise AssertionError(f"test image wrote {n_img} images ({res})")
-    log(f"[test path] seg: 4 PNG maps + test_result.csv in {t_seg:.1f} s "
-        f"(F1 avg {[round(v, 4) for v in table['f1_score_avg']]}); image: "
-        f"32 augmented PNGs; {wall:.1f} s in all; launches {launches}")
+    log(f"[{task.prefix}test path] seg ({task.name}): 4 PNG maps + "
+        f"test_result.csv with {list(table)} in {t_seg:.1f} s (F1 "
+        f"{[round(v, 4) for v in table[list(table)[1]]]}); image: 32 "
+        f"augmented PNGs; {wall:.1f} s in all; launches {launches}")
     return launches
+
+
 _CATEGORIES = (  # first match wins; kernel names lower-cased
     ("sinkhorn_solve", ("sinkhorn_solve_kernel",)),
     ("K1 softmin", ("softmin_kernel",)),
@@ -615,9 +709,9 @@ def _category(name: str) -> str:
     return "other"
 
 
-def flagship_step(dev, kind: str):
-    """A closure running one full-width flagship step of ``kind``
-    ("search": M=6 policies, rewards; "train": the autoaugment train step)
+def flagship_step(dev, kind: str, task: Task):
+    """A closure running one full-width step of ``kind`` ("search": M=6
+    policies, rewards; "train": the autoaugment train step) of ``task``
     with its batch and draws, as the run loops issue it."""
     from aadg_tpu_torch.config import load_config
     from aadg_tpu_torch.data.datasets import build_dataset, load_train_arrays
@@ -625,7 +719,7 @@ def flagship_step(dev, kind: str):
                                             make_train_store)
     from aadg_tpu_torch.engine import state, steps as steps_mod
     from aadg_tpu_torch.models.controller import policies_to_tensor
-    cfg = load_config(CFG_PATH, DATA_OPTS)
+    cfg = load_config(task.cfg, task.data)
     store = make_train_store(*load_train_arrays(build_dataset(cfg, "train")),
                              dev)
     ent = state.build_entities(cfg, kind, 2, dev)
@@ -650,7 +744,7 @@ def flagship_step(dev, kind: str):
     return one
 
 
-def phase_profile(dev, kind: str, steps: int = 3):
+def phase_profile(dev, kind: str, task: Task, steps: int = 3):
     """For one flagship step of ``kind``: two warm-up steps, then one step
     under torch.cuda.set_sync_debug_mode("error") (a synchronizing call
     raises), then ``steps`` steps under torch.profiler: the device time by
@@ -658,7 +752,8 @@ def phase_profile(dev, kind: str, steps: int = 3):
     time), the host and device time of each stage, and the stream
     synchronizations and host-to-device copies per step."""
     from torch.profiler import ProfilerActivity, profile
-    one = flagship_step(dev, kind)
+    one = flagship_step(dev, kind, task)
+    tag = f"[{task.prefix}profile] {kind} step"
     for _ in range(2):
         one()
     torch.cuda.synchronize()
@@ -668,8 +763,8 @@ def phase_profile(dev, kind: str, steps: int = 3):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log(f"[profile] {kind} step: a warmed step made no synchronizing call "
-        "under set_sync_debug_mode('error')")
+    log(f"{tag}: a warmed step made no synchronizing call under "
+        "set_sync_debug_mode('error')")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -706,16 +801,16 @@ def phase_profile(dev, kind: str, steps: int = 3):
     syncs = sync_counts(prof, steps, prefix + "rewards")
     cats = sorted(per_cat.items(), key=lambda kv: -kv[1])
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
-    log(f"[profile] {kind} step: wall {wall_ms:.1f} ms, device busy "
+    log(f"{tag}: wall {wall_ms:.1f} ms, device busy "
         f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; by category "
         "(ms/step): " + ", ".join(f"{k} {v:.2f}" for k, v in cats))
-    log(f"[profile] {kind} top kernels (ms/step): " + "; ".join(
+    log(f"{tag} top kernels (ms/step): " + "; ".join(
         f"{k[:70]} {v:.2f}" for k, v in top))
-    log(f"[profile] {kind} stages (host ms / device-span ms per step): "
+    log(f"{tag} stages (host ms / device-span ms per step): "
         + ", ".join(f"{k} {v.get('host_ms', 0.0):.2f}/"
                     f"{v.get('device_ms', 0.0):.2f}"
                     for k, v in stages.items()))
-    log(f"[profile] {kind} per step: " + ", ".join(
+    log(f"{tag} per step: " + ", ".join(
         f"{k} {v:g}" for k, v in syncs.items()))
     return {"wall_ms": wall_ms, "busy_ms": busy, "categories": dict(cats),
             "stages": stages, "syncs": syncs}
@@ -760,14 +855,17 @@ def main() -> int:
         f"cudnn {torch.backends.cudnn.allow_tf32}")
     phase_build()
     rows = phase_kernels(dev)
-    phase_reference(dev)
     by_path = {}
-    by_path["search"], search_dir = phase_main_path(dev)
-    by_path["train"], train_dir = phase_train_path(dev, search_dir)
-    phase_train_reference(dev)
-    by_path["test"] = phase_test_path(train_dir, search_dir)
-    for kind in ("search", "train"):
-        phase_profile(dev, kind)
+    for task in (OPTIC, RVS):
+        p = task.prefix
+        phase_reference(dev, task)
+        by_path[p + "search"], search_dir = phase_search_path(dev, task)
+        by_path[p + "train"], train_dir = phase_train_path(dev, task,
+                                                           search_dir)
+        phase_train_reference(dev, task)
+        by_path[p + "test"] = phase_test_path(task, train_dir, search_dir)
+        for kind in ("search", "train"):
+            phase_profile(dev, kind, task)
     for r in rows:
         r["launches"] = by_path["search"][r["name"]]
         r["launches_by_path"] = {p: v[r["name"]] for p, v in by_path.items()}

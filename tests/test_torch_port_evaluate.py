@@ -8,8 +8,17 @@ Tolerances: eval-forward probabilities within 1e-5 (f32 model; measured
 hd95 (a probability next to the threshold may fall on the other side); on
 identical hard masks the numbers are equal, since the counts are exact in
 f32 and hd95 runs the same numpy code.
+
+RVS: the JAX package's rvs fixture (UNet, one class) at 64² with its 4
+test images and ROIs, weights carried by ``from_flax``: eval-forward
+probabilities within 1e-5, and ``validate_rvs`` (weighted dice at 0.5, ROI
+accuracy, AUROC, specificity and sensitivity) within 1e-5 of the JAX
+function in every metric.
 """
 
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,13 +28,18 @@ from aadg_tpu.config import load_config as jax_load_config
 from aadg_tpu.data import datasets as jdatasets
 from aadg_tpu.data import stores as jstores
 from aadg_tpu.engine import evaluate as jev
+from aadg_tpu.engine import state as jstate
 from aadg_tpu_torch.config import load_config
 from aadg_tpu_torch.data import datasets as tdatasets
 from aadg_tpu_torch.data import stores as tstores
 from aadg_tpu_torch.engine import evaluate as tev
+from aadg_tpu_torch.engine import state as tstate
+from aadg_tpu_torch.weights import from_flax
 from torch_port_helpers import few_torch_threads  # noqa: F401
-from torch_port_helpers import (CFG, OPTS, port_state, sharpen_seg_head,
-                                step_pair)
+from torch_port_helpers import (CFG, OPTS, _np, port_state,
+                                sharpen_seg_head, step_pair)
+
+RVS_FIXTURE = "tests/fixtures/synthetic_rvs.yaml"
 
 
 @pytest.fixture(scope="module")
@@ -141,6 +155,64 @@ def test_validate_optic_weights_padding_out(setup, same_masks):
 
 
 def test_validate_raises_for_rvs(setup):
+    """rvs validation reads the store's ROIs: the optic store has none."""
     tent = setup[2]._replace(dataset_name="rvs")
-    with pytest.raises(NotImplementedError, match="validate_rvs"):
-        tev.validate(tent, setup[3].model, None)
+    _, tst = _stores(setup[4], 4)
+    with pytest.raises(ValueError, match="ROIs"):
+        tev.validate(tent, setup[3].model, tst)
+
+
+@pytest.fixture(scope="module")
+def rvs_setup():
+    """The JAX package's rvs fixture (UNet, one class) at 64²: JAX
+    entities and weights with a sharpened head, the port's entities and
+    model from the same weights, and the rvs test arrays (4 images with
+    ROIs)."""
+    jcfg = jax_load_config(RVS_FIXTURE)
+    jent = jstate.build_entities(jcfg, "search", steps_per_epoch=1)
+    variables = jax.jit(lambda k: jent.model.init(
+        k, jnp.zeros((1, 32, 32, 3)), train=False))(jax.random.PRNGKey(3))
+    params, stats = _np(variables["params"]), _np(variables["batch_stats"])
+    cfg = load_config(RVS_FIXTURE)
+    arrays = tdatasets.load_test_arrays(tdatasets.build_dataset(cfg, "test"))
+    # at init every probability sits within 0.02 of 0.5: scale the 1x1
+    # head and centre its bias on the median logit, so the 0.5 threshold
+    # splits the pixels
+    p = np.asarray(jev.make_eval_forward(jent)(params, stats,
+                                               jnp.asarray(arrays[0])))
+    median = float(np.median(np.log(p / (1 - p))))
+    gain = np.float32(50.0)
+    params["Conv_0"] = {"kernel": params["Conv_0"]["kernel"] * gain,
+                        "bias": np.full_like(params["Conv_0"]["bias"],
+                                             -gain * median)}
+    jsd = jstate.SegDisState(params, stats, None, None, None, None)
+    tent = tstate.build_entities(cfg, "search", device="cpu")
+    model = tent.make_model()
+    model.load_state_dict(from_flax({"params": params,
+                                     "batch_stats": stats}), strict=True)
+    return jent, jsd, tent, model, arrays
+
+
+def test_rvs_eval_forward_matches_jax(rvs_setup):
+    jent, jsd, tent, model, arrays = rvs_setup
+    imgs = arrays[0]
+    got = tev.eval_forward(tent, model, torch.from_numpy(imgs)).numpy()
+    want = np.asarray(jev.make_eval_forward(jent)(
+        jsd.seg_params, jsd.seg_stats, jnp.asarray(imgs)))
+    assert got.shape == want.shape == imgs.shape[:3] + (1,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert 0.01 < float((want > 0.5).mean()) < 0.99
+
+
+@pytest.mark.parametrize("batch_size", [3, 4])
+def test_validate_rvs_matches_jax(rvs_setup, batch_size):
+    jent, jsd, tent, model, arrays = rvs_setup
+    assert arrays[2] is not None and arrays[2].shape == arrays[1].shape
+    jst, tst = _stores(arrays, batch_size)
+    np.testing.assert_array_equal(tst.rois.numpy(), np.asarray(jst.rois))
+    got = tev.validate(tent, model, tst, batch_size)
+    want = jev.validate(jent, jsd, jst, batch_size)
+    assert list(got) == list(want) == ["dsc", "acc", "aucroc", "sp", "se"]
+    for k in want:
+        assert math.isfinite(got[k]) and 0.0 <= got[k] <= 1.0, (k, got)
+        assert abs(got[k] - want[k]) <= 1e-5, (k, got[k], want[k])

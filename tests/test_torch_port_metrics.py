@@ -1,11 +1,16 @@
-"""The port's optic metrics against ``aadg_tpu/metrics.py`` on seeded
-numpy masks, empty and one-pixel masks included.
+"""The port's metrics against ``aadg_tpu/metrics.py`` on seeded numpy
+masks, empty and one-pixel masks included.
 
 ``hd95`` and ``hd95_with_penalty`` run the same numpy/scipy code, and
 ``dice_coef`` sums exact 0/1 counts in f32, so all three must be equal.
 Weighted ``samplewise_f1`` divides f32 sums whose order may differ
-between XLA and torch: within 1e-6.
+between XLA and torch: within 1e-6. The rvs binary metrics (AUROC,
+accuracy, specificity, sensitivity), with and without an ROI, with tied
+scores and with a one-class ROI (AUROC nan), within 1e-12: both run numpy
+in float64 on the same ranks and counts.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,3 +97,47 @@ def test_samplewise_f1_matches_jax(weighted):
                             None if w is None else jnp.asarray(w))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-6)
+
+
+def _rvs_case(kind, seed, n=4000):
+    """Probabilities, 0/1 labels and an ROI: ``float`` scores are f32
+    sigmoid-like values (few ties), ``ties`` take 21 distinct values,
+    ``one_class`` has only background inside the ROI."""
+    rng = np.random.default_rng(seed)
+    labels = (rng.random(n) < 0.2).astype(np.float32)
+    scores = np.clip(0.35 * labels + 0.65 * rng.random(n), 0, 1).astype(
+        np.float32)
+    if kind == "ties":
+        scores = np.round(scores * 20) / 20
+    roi = rng.random(n) < 0.7
+    if kind == "one_class":
+        roi &= labels == 0
+    return scores.reshape(40, -1), labels.reshape(40, -1), roi.reshape(40, -1)
+
+
+RVS_METRICS = ["auroc", "accuracy_score", "specificity", "sensitivity"]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "roi"])
+@pytest.mark.parametrize("kind", ["float", "ties", "one_class"])
+@pytest.mark.parametrize("metric", RVS_METRICS)
+def test_rvs_metrics_equal_jax(metric, kind, masked):
+    scores, labels, roi = _rvs_case(kind, RVS_METRICS.index(metric))
+    mask = roi if masked else None
+    got = getattr(tm, metric)(scores, labels, mask)
+    want = getattr(jm, metric)(scores, labels, mask)
+    if metric == "auroc" and kind == "one_class" and masked:
+        assert math.isnan(got) and math.isnan(want)
+        return
+    assert math.isfinite(got)
+    assert got == pytest.approx(want, rel=0, abs=1e-12)
+
+
+def test_auroc_ties_average_ranks():
+    """Scores [.1, .4, .4, .8], labels [0, 1, 0, 1]: the tied pair shares
+    rank 2.5, so AUROC = (2.5 + 4 - 3) / 4 = 0.875."""
+    s = np.array([0.1, 0.4, 0.4, 0.8])
+    y = np.array([0, 1, 0, 1])
+    assert tm.auroc(s, y) == 0.875 == jm.auroc(s, y)
+    assert math.isnan(tm.auroc(s, np.zeros(4)))
+    assert tm.auroc(s, y, np.array([True, True, False, True])) == 1.0

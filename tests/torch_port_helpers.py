@@ -8,6 +8,8 @@ builds one JAX/port pair of search-step states from the same weights and
 compares what the two steps produce.
 """
 
+from collections.abc import Mapping
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,7 @@ from aadg_tpu_torch.config import load_config
 from aadg_tpu_torch.data.datasets import SyntheticDataset
 from aadg_tpu_torch.data.transforms import ScaleCropDraw
 from aadg_tpu_torch.engine import state as tstate
-from aadg_tpu_torch.weights import from_flax
+from aadg_tpu_torch.weights import _LEAF, from_flax
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -88,6 +90,13 @@ OPTS = ["DATASET.NAME", "synthetic_optic", "TPU.CROP_SIZE", "64",
         "TRAIN.BATCH_SIZE", "1", "CONTROLLER.M", "2",
         "TPU.COMPUTE_DTYPE", "float32", "TRAIN.WD", "0.0001"]
 CFG = "experiments/optic_sinkhorn/diversity.yaml"
+# the flagship rvs config (DeepLabV3+, one class) cut to crop 32 from 64^2
+# vessel pools, so the scale-crop draws scales in [0.5, 2]
+RVS_CROP = 32
+RVS_OPTS = ["DATASET.NAME", "synthetic_rvs", "TPU.CROP_SIZE", "32",
+            "TRAIN.BATCH_SIZE", "1", "CONTROLLER.M", "2",
+            "TPU.COMPUTE_DTYPE", "float32", "TRAIN.WD", "0.0001"]
+RVS_CFG = "experiments/rvs_sinkhorn/diversity_ex.yaml"
 
 
 def _capture():
@@ -102,16 +111,18 @@ def _np(tree):
     return jax.tree_util.tree_map(lambda a: np.array(a, np.float32), tree)
 
 
-def step_pair():
+def step_pair(task: str = "optic"):
     """(JAX entities with gradient-capturing optimizers, JAX state, port
-    entities, raw batch (1, 3, 64, 64, 3)) at the flagship config cut to
-    crop 64, B=1, M=2, f32."""
-    jcfg = jax_load_config(CFG, OPTS)
+    entities, raw batch (1, 3, 64, 64, 3)) at the flagship config of
+    ``task`` cut to B=1, M=2, f32: optic at crop 64, rvs at crop 32."""
+    cfg, opts, crop = ((CFG, OPTS, CROP) if task == "optic"
+                       else (RVS_CFG, RVS_OPTS, RVS_CROP))
+    jcfg = jax_load_config(cfg, opts)
     jent = jstate.build_entities(jcfg, "search", steps_per_epoch=1)
     jent = jent._replace(model_tx=_capture(), dis_tx=_capture())
     k_model, k_dis = jax.random.split(jax.random.PRNGKey(0))
     variables = jax.jit(lambda k: jent.model.init(
-        k, jnp.zeros((1, CROP, CROP, 3)), train=False))(k_model)
+        k, jnp.zeros((1, crop, crop, 3)), train=False))(k_model)
     dis_params = jent.disc.init(k_dis, jnp.zeros((1, jent.feature_dim)))[
         "params"]
     sd = jstate.SegDisState(
@@ -119,9 +130,9 @@ def step_pair():
         seg_opt=jent.model_tx.init(variables["params"]),
         dis_params=dis_params, dis_stats={},
         dis_opt=jent.dis_tx.init(dis_params))
-    tent = tstate.build_entities(load_config(CFG, OPTS), "search",
+    tent = tstate.build_entities(load_config(cfg, opts), "search",
                                  steps_per_epoch=1, device="cpu")
-    ds = SyntheticDataset("optic", n_per_domain=1, size=64)
+    ds = SyntheticDataset(task, n_per_domain=1, size=64)
     imgs = np.stack([d.images[0] for d in ds.domains])[None].astype(
         np.float32)                                   # (1, 3, 64, 64, 3)
     masks = np.stack([d.labels[0] for d in ds.domains])[None].astype(
@@ -159,9 +170,9 @@ def torch_batch(batch):
             torch.from_numpy(dcs.astype(np.int64)))
 
 
-def crop_draw(keys):
+def crop_draw(keys, scale_range=(1.0, 1.5)):
     return ScaleCropDraw(*(torch.from_numpy(a) for a in
-                           scale_crop_draws(keys, (1.0, 1.5))))
+                           scale_crop_draws(keys, scale_range)))
 
 
 def check_grads(module, jgrads, tight: bool):
@@ -194,7 +205,27 @@ def check_stats(model, jstats):
 
 
 def check_metrics(tm, jm):
+    assert set(tm) == set(jm)
     for k in ("seg_loss", "dis_loss"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4)
-    for k in ("cup_dsc", "disc_dsc"):
+    for k in (k for k in tm if k.endswith("dsc")):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=1e-3)
+
+
+def to_flax(state_dict, template):
+    """The inverse of ``weights.from_flax``: numpy arrays in the layout of
+    the flax tree ``template`` ({"params": ..., "batch_stats": ...}) from a
+    port state_dict."""
+    def walk(tree, prefix):
+        out = {}
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                out[name] = walk(value, f"{prefix}{name}.")
+                continue
+            arr = state_dict[prefix + _LEAF[name]].detach().cpu().numpy()
+            if name == "kernel":
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            assert arr.shape == np.shape(value), (prefix, name)
+            out[name] = np.ascontiguousarray(arr, np.float32)
+        return out
+    return {k: walk(v, "") for k, v in template.items()}
