@@ -12,14 +12,15 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config import CfgNode
 from ..data.transforms import make_train_transform
-from ..models import build_model, class_parser, domain_parser, model_class
+from ..models import (build_model, class_parser, domain_parser,
+                      dropout_drawer, feature_dim)
 from ..models.controller import Controller, ControllerSpec, spec_from_config
 from ..models.discriminator import (MomentumFeatureDiscriminator,
                                     build_discriminator)
@@ -112,6 +113,9 @@ class Entities(NamedTuple):
     model_schedule: Callable  # step -> the model's learning rate
     device: torch.device
     compute_dtype: torch.dtype
+    # (n, generator) -> the model's dropout masks for n training crops;
+    # None for a model without dropout
+    draw_dropout: Optional[Callable]
 
     def autocast(self):
         """Autocast context for the segmentation model's forward."""
@@ -155,18 +159,18 @@ def build_entities(cfg: CfgNode, mode: str = "search",
                    steps_per_epoch: int = 1, device="cuda",
                    logger=None) -> Entities:
     """What a run builds once from the config. The model, its number of
-    classes and the discriminator's input width come from the model
-    factory. The model's schedule is MultiStepLR (x0.1 at the end of
-    warmup) in search mode and cosine over ``END_EPOCH * steps_per_epoch``
-    steps otherwise."""
-    feature_dim = model_class(cfg).feature_dim
+    classes, its dropout draws and the discriminator's input width come
+    from the model factory. The model's schedule is MultiStepLR (x0.1 at
+    the end of warmup) in search mode and cosine over ``END_EPOCH *
+    steps_per_epoch`` steps otherwise."""
+    width = feature_dim(cfg)
     if int(cfg.TPU.DATA_PARALLEL) not in (-1, 1):
         raise NotImplementedError(
             "data parallelism is not ported yet (ROADMAP queue 1, item 6)")
     base = "optic" if "optic" in cfg.DATASET.NAME else "rvs"
     num_classes = class_parser(base)
-    transform, scale_range = make_train_transform(
-        base, int(cfg.TPU.CROP_SIZE))
+    crop = int(cfg.TPU.CROP_SIZE)
+    transform, scale_range = make_train_transform(base, crop)
     op_names = resolve_search_space(cfg, logger)
     spec = spec_from_config(cfg, num_ops=len(op_names))
     multi_policy = aug_mod.make_multi_policy_applier(
@@ -186,9 +190,10 @@ def build_entities(cfg: CfgNode, mode: str = "search",
         multi_policy=multi_policy, op_names=op_names,
         n_domains=domain_parser(base), num_classes=num_classes,
         dis_name=cfg.DISCRIMINATOR.NAME, dataset_name=base,
-        feature_dim=feature_dim, lr=lr,
+        feature_dim=width, lr=lr,
         wd=float(cfg.TRAIN.WD), model_schedule=schedule,
-        device=torch.device(device), compute_dtype=dtype)
+        device=torch.device(device), compute_dtype=dtype,
+        draw_dropout=dropout_drawer(cfg, crop))
 
 
 def init_state(ent: Entities, seed: int):

@@ -8,14 +8,17 @@ stay in ``.grad`` after the step. The order of operations is the JAX
 step's: the augmented copies take their labels from the original masks,
 copy (b, d, m) is row (b*D + d)*M + m, the reward features are arranged
 (M, D, B, F), and the momentum branch reads the discriminator before its
-update. The steps' stages are named profiler ranges (``search/augment``
-... ``search/optimizer``, ``train/augment`` ... ``train/optimizer``),
-which cost nothing unless ``torch.profiler`` is recording.
+update. A model with dropout (SegFormer) takes its masks from the draws
+(``ent.draw_dropout``), so activation checkpointing replays them; the
+others draw nothing. The steps' stages are named profiler ranges
+(``search/augment`` ... ``search/optimizer``, ``train/augment`` ...
+``train/optimizer``), which cost nothing unless ``torch.profiler`` is
+recording.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 from torch.profiler import record_function
@@ -32,25 +35,34 @@ from .state import Entities, SegDisState
 class PretrainDraws(NamedTuple):
     crop: ScaleCropDraw    # per sample (B*D)
     soft: torch.Tensor     # (B*D, n_domains) soft-label uniforms
+    dropout: Any = None    # the model's masks for B*D crops, or None
 
 
 class SearchDraws(NamedTuple):
     policy: PolicyDraw     # (B*D, M)
     crop: ScaleCropDraw    # per augmented copy (B*D*M)
     soft: torch.Tensor     # (B*D, n_domains)
+    dropout: Any = None    # the model's masks for B*D*M crops, or None
 
 
 class TrainDraws(NamedTuple):
     coin: torch.Tensor     # () uniform: the augmented batch is used if > 0.5
     policy: PolicyDraw     # (B*D, 1)
     crop: ScaleCropDraw    # per sample (B*D)
+    dropout: Any = None    # the model's masks for B*D crops, or None
+
+
+def _draw_dropout(ent: Entities, n: int, generator: torch.Generator):
+    return (None if ent.draw_dropout is None
+            else ent.draw_dropout(n, generator))
 
 
 def draw_pretrain(ent: Entities, n0: int,
                   generator: torch.Generator) -> PretrainDraws:
     return PretrainDraws(
         draw_scale_crop(n0, ent.scale_range, generator),
-        draw_soft_domain_label(n0, ent.n_domains, generator))
+        draw_soft_domain_label(n0, ent.n_domains, generator),
+        _draw_dropout(ent, n0, generator))
 
 
 def draw_search(ent: Entities, n0: int, M: int, h: int, w: int,
@@ -59,7 +71,8 @@ def draw_search(ent: Entities, n0: int, M: int, h: int, w: int,
         draw_policy(n0, M, ent.ctrl_spec.Q, ent.ctrl_spec.L, h, w,
                     generator),
         draw_scale_crop(n0 * M, ent.scale_range, generator),
-        draw_soft_domain_label(n0, ent.n_domains, generator))
+        draw_soft_domain_label(n0, ent.n_domains, generator),
+        _draw_dropout(ent, n0 * M, generator))
 
 
 def _flatten(batch):
@@ -79,9 +92,10 @@ def _seg_metrics(ent: Entities, seg_soft, y):
     return {"dsc": samplewise_f1(hard[..., 0], y[..., 0])[1]}
 
 
-def _forward_seg(ent: Entities, sd: SegDisState, x, y):
+def _forward_seg(ent: Entities, sd: SegDisState, x, y, dropout):
     with ent.autocast():
-        logits, feat = sd.model(x)
+        logits, feat = (sd.model(x) if dropout is None
+                        else sd.model(x, dropout))
     seg_soft = torch.sigmoid(logits)
     return seg_soft, bce_loss(seg_soft, y), feat
 
@@ -92,7 +106,8 @@ def draw_train(ent: Entities, n0: int, h: int, w: int,
         torch.rand((), generator=generator, device=generator.device),
         draw_policy(n0, 1, ent.ctrl_spec.Q, ent.ctrl_spec.L, h, w,
                     generator),
-        draw_scale_crop(n0, ent.scale_range, generator))
+        draw_scale_crop(n0, ent.scale_range, generator),
+        _draw_dropout(ent, n0, generator))
 
 
 def make_pretrain_step(ent: Entities, step_disc: bool = True):
@@ -101,8 +116,8 @@ def make_pretrain_step(ent: Entities, step_disc: bool = True):
 
     ``step_disc=False`` is the plain train mode's step: the discriminator
     is neither run nor stepped (its parameters, gradients and optimizer
-    stay untouched), the draws need only ``crop``, and the metrics have no
-    ``dis_loss``."""
+    stay untouched), the draws need only ``crop`` (and ``dropout``), and
+    the metrics have no ``dis_loss``."""
 
     stage = "pretrain" if step_disc else "train"
 
@@ -112,7 +127,8 @@ def make_pretrain_step(ent: Entities, step_disc: bool = True):
             x, y = ent.transform(imgs, masks, draws.crop)
             sd.model.train()
             sd.seg_opt.zero_grad()
-            seg_soft, seg_loss, feat = _forward_seg(ent, sd, x, y)
+            seg_soft, seg_loss, feat = _forward_seg(ent, sd, x, y,
+                                                    draws.dropout)
             metrics = {"seg_loss": seg_loss.detach()}
             if step_disc:
                 sd.dis_opt.zero_grad()
@@ -187,7 +203,8 @@ def make_search_step(ent: Entities, M: int, sinkhorn_blur: float = 0.05,
             sd.model.train()
             sd.seg_opt.zero_grad()
             sd.dis_opt.zero_grad()
-            seg_soft, seg_loss, feat = _forward_seg(ent, sd, x, y)
+            seg_soft, seg_loss, feat = _forward_seg(ent, sd, x, y,
+                                                    draws.dropout)
             feat = feat.detach()
             dis_loss_bp = soft_cross_entropy(sd.disc(feat), dc_soft)
             (seg_loss + dis_loss_bp).backward()

@@ -1,14 +1,19 @@
 """Model factory of the PyTorch/CUDA port (port of
-``aadg_tpu/models/__init__.py:24-60`` for the two ported models)."""
+``aadg_tpu/models/__init__.py:24-64`` for the three ported models)."""
 
 from __future__ import annotations
 
+import functools
+from typing import Callable, Optional
+
 from torch import nn
 
+from . import segformer
 from .deeplab import DeepLabV3Plus
+from .segformer import SegFormer
 from .unet import UNet
 
-_MODELS = {"deeplabv3+": DeepLabV3Plus, "unet": UNet}
+_MODELS = {"deeplabv3+": DeepLabV3Plus, "unet": UNet, "segformer": SegFormer}
 
 
 def class_parser(dataset: str) -> int:
@@ -20,12 +25,17 @@ def domain_parser(dataset: str) -> int:
 
 
 def channel_parser(backbone: str) -> int:
-    return {"mobilenet_v2": 1280, "unet": 512}[backbone]
+    return {"mobilenet_v2": 1280, "unet": 512,
+            "mit_b0": 256, "mit_b1": 512, "mit_b2": 512, "mit_b3": 512
+            }[backbone]
+
+
+def _variant(cfg) -> str:
+    return cfg.MODEL.BACKBONE or "mit_b1"
 
 
 def model_class(cfg) -> type:
-    """The class ``build_model`` makes for ``cfg``; its ``feature_dim`` is
-    the width of the pooled feature the discriminator reads."""
+    """The class ``build_model`` makes for ``cfg``."""
     name = cfg.MODEL.NAME
     if name not in _MODELS:
         raise NotImplementedError(
@@ -37,10 +47,34 @@ def model_class(cfg) -> type:
     return _MODELS[name]
 
 
+def feature_dim(cfg) -> int:
+    """The width of the pooled feature the discriminator reads."""
+    cls = model_class(cfg)
+    if cls is SegFormer:
+        return segformer.VARIANTS[_variant(cfg)][0][-1]
+    return cls.feature_dim
+
+
+def dropout_drawer(cfg, crop: int) -> Optional[Callable]:
+    """``(n, generator) -> masks`` of one train-mode forward of ``n``
+    crop x crop images, for a model with dropout (SegFormer); None for
+    the others, which draw nothing."""
+    if model_class(cfg) is not SegFormer:
+        return None
+    return functools.partial(segformer.draw_dropout, _variant(cfg),
+                             float(cfg.MODEL.DROP_PATH_RATE), crop, crop)
+
+
 def build_model(cfg, num_classes: int) -> nn.Module:
     """The segmentation model of ``cfg`` with ``num_classes`` outputs:
-    ``model(x) -> (logits, pooled feature)``, NHWC."""
+    ``model(x) -> (logits, pooled feature)``, NHWC. ``TPU.REMAT``
+    checkpoints the blocks of DeepLabV3+'s encoder and of SegFormer's (the
+    JAX UNet has no remat)."""
     cls = model_class(cfg)
+    remat = bool(cfg.TPU.REMAT)
     if cls is UNet:
         return UNet(in_channels=3, out_channels=num_classes)
-    return DeepLabV3Plus(num_classes)
+    if cls is SegFormer:
+        return SegFormer(num_classes, _variant(cfg),
+                         float(cfg.MODEL.DROP_PATH_RATE), remat)
+    return DeepLabV3Plus(num_classes, remat=remat)

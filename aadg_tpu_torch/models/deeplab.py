@@ -7,7 +7,8 @@ input). ASPP rates (12, 24, 36) plus the image-pooling branch, separable
 3x3 convs, decoder on the 1/4 low-level feature, 3x3 segmentation head and
 x4 bilinear upsampling (``F.interpolate``, half-pixel centres, which equals
 ``jax.image.resize(..., "bilinear")`` when upsampling). Under autocast the
-segmentation head runs in f32, as the JAX model's does.
+segmentation head runs in f32, as the JAX model's does. ``remat``
+(``TPU.REMAT``) checkpoints every inverted residual of the encoder.
 """
 
 from __future__ import annotations
@@ -62,9 +63,10 @@ class ASPP(nn.Module):
 class DeepLabV3Plus(nn.Module):
     feature_dim = 1280
 
-    def __init__(self, num_classes: int, decoder_channels: int = 256):
+    def __init__(self, num_classes: int, decoder_channels: int = 256,
+                 remat: bool = False):
         super().__init__()
-        self.encoder = MobileNetV2Encoder()
+        self.encoder = MobileNetV2Encoder(remat=remat)
         self.aspp = ASPP(1280, decoder_channels)
         self.low_conv = conv(24, 48, 1)
         self.BatchNorm_0 = BatchNorm(48)

@@ -4,16 +4,19 @@
 Submodules carry the flax module names (``ConvBNReLU6_0``,
 ``InvertedResidual_3``, ``Conv_0``, ``BatchNorm_0`` ...) so a flax
 parameter path maps to a state_dict key one to one (``weights.from_flax``).
-Tensors are NCHW inside the model.
+Tensors are NCHW inside the model. ``remat`` (``TPU.REMAT``) checkpoints
+every inverted residual, as the JAX encoder's ``nn.remat`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -27,13 +30,16 @@ class BatchNorm(nn.Module):
     """flax.linen.BatchNorm semantics: momentum 0.9 on the running stats
     (torch's 0.1), eps 1e-5, and the running variance blended with the
     *biased* batch variance (torch's BatchNorm2d blends the unbiased one).
-    The statistics stay f32 under autocast."""
+    The statistics stay f32 under autocast. ``update_stats`` is cleared
+    while ``checkpointed`` recomputes the forward, so a checkpointed block
+    updates its running statistics once per step, as the JAX model does."""
 
     def __init__(self, channels: int, momentum: float = 0.9,
                  eps: float = 1e-5):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -50,6 +56,8 @@ class BatchNorm(nn.Module):
         var = self.running_var.clone()
         out = F.batch_norm(x, mean, var, self.weight, self.bias, True,
                            1.0 - self.momentum, self.eps)
+        if not self.update_stats:
+            return out
         with torch.no_grad():
             # torch blended (1 - momentum) * var * n / (n - 1); rescale that
             # term to the biased variance
@@ -57,6 +65,30 @@ class BatchNorm(nn.Module):
             self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
             self.running_mean.copy_(mean)
         return out
+
+
+@contextlib.contextmanager
+def _stats_frozen(module: nn.Module):
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
+def checkpointed(module: nn.Module, *args):
+    """``module(*args)`` with activation checkpointing: only the inputs are
+    kept for the backward pass, which runs the forward again (under the
+    same autocast) before differentiating it. The recomputation leaves the
+    BatchNorm running statistics alone. The modules draw no random numbers
+    (dropout masks are inputs), so no RNG state is saved."""
+    return checkpoint(module, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _stats_frozen(module)))
 
 
 def lecun_normal_(weight: torch.Tensor) -> None:
@@ -131,8 +163,9 @@ _SETTINGS = [
 class MobileNetV2Encoder(nn.Module):
     """NCHW input -> (low_level C2 24ch @ 1/4, high_level C5 1280ch)."""
 
-    def __init__(self, output_stride: int = 16):
+    def __init__(self, output_stride: int = 16, remat: bool = False):
         super().__init__()
+        self.remat = remat
         ch = _make_divisible(32)
         self.ConvBNReLU6_0 = ConvBNReLU6(3, ch, kernel=3, stride=2)
         self.blocks = []
@@ -161,8 +194,10 @@ class MobileNetV2Encoder(nn.Module):
     def forward(self, x):
         x = self.ConvBNReLU6_0(x)
         low = None
+        remat = self.remat and torch.is_grad_enabled()
         for i, name in enumerate(self.blocks):
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = checkpointed(block, x) if remat else block(x)
             if i == self.low_level_after:
                 low = x
         return low, self.ConvBNReLU6_1(x)

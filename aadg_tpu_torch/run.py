@@ -11,8 +11,9 @@ It runs on the CUDA card unless ``--device cpu`` is given, and raises when
 no card is visible and the CPU was not asked for. Both tasks run on the
 synthetic pools: optic (``DATASET.NAME synthetic_optic``) and rvs
 (``--cfg experiments/rvs_sinkhorn/diversity_ex.yaml DATASET.NAME
-synthetic_rvs TPU.SYNTHETIC_SIZE 512``); the Fundus and RVS disk readers
-are not ported yet.
+synthetic_rvs TPU.SYNTHETIC_SIZE 512``), SegFormer on the optic pools
+with ``--cfg experiments/zoo/segformer_b4_optic.yaml DATASET.NAME
+synthetic_optic``; the Fundus and RVS disk readers are not ported yet.
 """
 
 from __future__ import annotations

@@ -26,8 +26,10 @@ exit code:
 
 then, for each task (optic: experiments/optic_sinkhorn/diversity.yaml on
 synthetic_optic at 256^2; rvs: experiments/rvs_sinkhorn/diversity_ex.yaml
-on synthetic_rvs at 512^2; both DeepLabV3+/MobileNetV2, B=8 x 3 domains x
-M=6 policies, crop 256):
+on synthetic_rvs at 512^2; both DeepLabV3+/MobileNetV2; segformer:
+experiments/zoo/segformer_b4_optic.yaml, SegFormer with MiT-b4 at its
+full depth, stochastic depth 0.1 and TPU.REMAT on, on synthetic_optic at
+256^2; all B=8 x 3 domains x M=6 policies, crop 256):
 
 4. reference: one search step on the card (kernels) and on the CPU (plain
    versions) from the same weights, batch and draws at crop 64 in f32
@@ -57,12 +59,29 @@ M=6 policies, crop 256):
    under torch.cuda.set_sync_debug_mode("error") (any synchronizing call
    fails the run), with the device time per kernel category, the device's
    idle share, the host and device time of each stage, and the stream
-   synchronizations and host-to-device copies per step.
+   synchronizations and host-to-device copies per step; for segformer the
+   categories show LayerNorm, GELU and the softmax (the attention's, and
+   the soft cross-entropy's);
+
+and for segformer also:
+
+10. attention: ``models/segformer.py::attention`` (matmul, softmax,
+    matmul) forward and backward at each MiT-b4 stage's shapes of one
+    search step, timed with CUDA events beside
+    ``F.scaled_dot_product_attention`` on the same inputs and the bound,
+    summed over the blocks into ms per search step (with the forward
+    that remat repeats) and its share of the profiled step's device time;
+11. remat: one full-width search step with TPU.REMAT true and with false,
+    each with its median over 3 steps after a warm-up step and its peak
+    memory allocated; a torch.cuda.OutOfMemoryError of the run without
+    remat is caught and printed as the finding, any other error fails;
+    the parameter count, f32 operations per image and the bytes autograd
+    keeps per image with and without remat (``segformer_costs``).
 
 Every path runs with each kernel's launch counter set to 0 just before it
 and read just after; the kernels line gives the counts per path (optic
 ``search``/``train``/``test``, rvs ``rvs_search``/``rvs_train``/
-``rvs_test``).
+``rvs_test``, segformer ``segformer_search``/...).
 
 Then a line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when no
@@ -71,6 +90,7 @@ CUDA card is visible.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import shutil
@@ -92,21 +112,27 @@ L = 2  # ops per sub-policy: one switcher call, one K2 and one K3 each
 
 
 class Task(NamedTuple):
-    name: str        # "optic" or "rvs"
+    name: str        # "optic", "rvs" or "segformer"
     cfg: str         # the experiment file
     data: list       # overrides selecting the synthetic pools
     ref_size: int    # pool side of the crop-64 card == CPU references
     prefix: str      # of the launch-count paths and the log tags
+    dataset: str     # "optic" or "rvs"
 
 
 # the flagship configs on the synthetic pools at each task's native
 # resolution (the Fundus and RVS data are not in the repo)
 OPTIC = Task("optic", "experiments/optic_sinkhorn/diversity.yaml",
              ["DATASET.NAME", "synthetic_optic", "TPU.SYNTHETIC_SIZE", "256"],
-             64, "")
+             64, "", "optic")
 RVS = Task("rvs", "experiments/rvs_sinkhorn/diversity_ex.yaml",
            ["DATASET.NAME", "synthetic_rvs", "TPU.SYNTHETIC_SIZE", "512"],
-           128, "rvs_")
+           128, "rvs_", "rvs")
+# the SegFormer (MiT-b4) config on the optic pools; its card == CPU
+# references run the full depth at crop 64
+SEGFORMER = Task("segformer", "experiments/zoo/segformer_b4_optic.yaml",
+                 ["DATASET.NAME", "synthetic_optic", "TPU.SYNTHETIC_SIZE",
+                  "256"], 64, "segformer_", "optic")
 
 
 def log(msg: str) -> None:
@@ -431,10 +457,22 @@ def reference_batch(task: Task):
     """One image per domain of the task's synthetic pools at
     ``task.ref_size``^2, as a (1, 3, S, S, 3) batch."""
     from aadg_tpu_torch.data.datasets import SyntheticDataset
-    ds = SyntheticDataset(task.name, n_per_domain=1, size=task.ref_size)
+    ds = SyntheticDataset(task.dataset, n_per_domain=1,
+                          size=task.ref_size)
     imgs = torch.stack([torch.from_numpy(d.images[0]) for d in ds.domains])
     masks = torch.stack([torch.from_numpy(d.labels[0]) for d in ds.domains])
     return (imgs[None].float(), masks[None].float(), torch.arange(3)[None])
+
+
+def to_device(draws, device):
+    """A step's draws or batch (tuples and NamedTuples of tensors, nested,
+    None where a model draws nothing) on ``device``."""
+    if draws is None:
+        return None
+    if isinstance(draws, torch.Tensor):
+        return draws.to(device)
+    moved = [to_device(d, device) for d in draws]
+    return type(draws)(*moved) if hasattr(draws, "_fields") else tuple(moved)
 
 
 def reference_cfg(task: Task, extra=()):
@@ -459,12 +497,9 @@ def phase_reference(dev, task: Task):
     for device in ("cpu", dev):
         ent = state.build_entities(cfg, "search", 1, device)
         sd, _ = state.init_state(ent, 0)
-        move = lambda t: t.to(device)
-        d = steps.SearchDraws(
-            type(draws.policy)(*map(move, draws.policy)),
-            type(draws.crop)(*map(move, draws.crop)), move(draws.soft))
         ms, r = steps.make_search_step(ent, 2)(
-            sd, tuple(map(move, batch)), move(pol), d)
+            sd, to_device(batch, device), pol.to(device),
+            to_device(draws, device))
         results[str(device)] = ({k: float(v) for k, v in ms.items()},
                                 r.cpu())
     (m_cpu, r_cpu), (m_gpu, r_gpu) = results["cpu"], results[str(dev)]
@@ -520,7 +555,7 @@ def check_epochs(summary) -> None:
 
 def check_final_result(run_dir: str, task: Task, with_hd: bool) -> dict:
     res = json.loads((Path(run_dir) / "final_result.json").read_text())
-    if task.name == "optic":
+    if task.dataset == "optic":
         keys = ["avg_dsc", "cup_dsc", "disc_dsc"] + (
             ["avg_hd", "cup_hd", "disc_hd"] if with_hd else [])
     else:
@@ -625,13 +660,9 @@ def phase_train_reference(dev, task: Task):
         for device in ("cpu", dev):
             ent = state.build_entities(cfg, "train", 1, device)
             sd, _ = state.init_state(ent, 0)
-            move = lambda t: t.to(device)
-            d = steps.TrainDraws(
-                torch.tensor(coin, device=device),
-                type(draws.policy)(*map(move, draws.policy)),
-                type(draws.crop)(*map(move, draws.crop)))
+            d = to_device(draws._replace(coin=torch.tensor(coin)), device)
             ms = steps.make_autoaug_train_step(ent)(
-                sd, tuple(map(move, batch)), move(pol), d)
+                sd, to_device(batch, device), pol.to(device), d)
             results[str(device)] = {k: float(v) for k, v in ms.items()}
         m_cpu, m_gpu = results["cpu"], results[str(dev)]
         if not math.isclose(m_gpu["seg_loss"], m_cpu["seg_loss"],
@@ -689,9 +720,13 @@ _CATEGORIES = (  # first match wins; kernel names lower-cased
     ("K2 hist3", ("hist3_kernel",)),
     ("K3 lut_apply3", ("lut_apply3_kernel",)),
     ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "batchnorm")),
-    ("convolution", ("conv", "xmma", "implicit", "wgrad", "dgrad", "cudnn",
+    ("layer norm", ("layer_norm", "layernorm", "gammabeta")),
+    ("softmax", ("softmax",)),
+    ("gelu", ("gelu",)),
+    # cuDNN's implicit-GEMM convolutions before cuBLAS's sm80_xmma_gemm
+    ("convolution", ("conv", "implicit", "fprop", "wgrad", "dgrad", "cudnn",
                      "nhwc", "nchw", "depthwise")),
-    ("matmul", ("gemm", "cutlass", "cublas", "sm90_")),
+    ("matmul", ("gemm", "cutlass", "cublas", "sm90_", "xmma")),
     ("layout transform", ("tensortransform", "transpose", "nchwtonhwc",
                           "nhwctonchw")),
     ("copy/memset", ("memcpy", "memset", "copy")),
@@ -709,17 +744,18 @@ def _category(name: str) -> str:
     return "other"
 
 
-def flagship_step(dev, kind: str, task: Task):
+def flagship_step(dev, kind: str, task: Task, opts=()):
     """A closure running one full-width step of ``kind`` ("search": M=6
     policies, rewards; "train": the autoaugment train step) of ``task``
-    with its batch and draws, as the run loops issue it."""
+    (with the config overrides ``opts``) with its batch and draws, as the
+    run loops issue it."""
     from aadg_tpu_torch.config import load_config
     from aadg_tpu_torch.data.datasets import build_dataset, load_train_arrays
     from aadg_tpu_torch.data.stores import (draw_batch_indices, gather_batch,
                                             make_train_store)
     from aadg_tpu_torch.engine import state, steps as steps_mod
     from aadg_tpu_torch.models.controller import policies_to_tensor
-    cfg = load_config(task.cfg, task.data)
+    cfg = load_config(task.cfg, [*task.data, *opts])
     store = make_train_store(*load_train_arrays(build_dataset(cfg, "train")),
                              dev)
     ent = state.build_entities(cfg, kind, 2, dev)
@@ -839,6 +875,175 @@ def sync_counts(prof, steps: int, rewards_range: str) -> dict:
     return {k: v / steps for k, v in out.items()}
 
 
+def segformer_costs(device, variant: str = "mit_b4", crop: int = 256,
+                    rate: float = 0.1) -> dict:
+    """Counts of one train-mode forward of SegFormer ``variant`` (2
+    classes) on one crop^2 image, run on ``device``: the parameters; the
+    f32 operations of its matmuls and convolutions (torch's
+    FlopCounterMode, 2 per multiply-add; normalisations, activations and
+    softmax not counted), in all and inside the MiT blocks; and the bytes
+    autograd keeps for the backward pass (each saved storage once,
+    parameters excluded), without remat every saved tensor, with remat
+    those saved outside the blocks plus each block's input. A step's
+    forward + backward is taken as 3 forwards (the backward of a matmul or
+    convolution is two of its forward; the counter prices a grouped
+    convolution's backward as a dense one), and remat adds the blocks'
+    forward once more."""
+    import re
+    from torch.utils.flop_counter import FlopCounterMode
+    from aadg_tpu_torch.models import segformer as sf
+    out = {}
+    for remat in (False, True):
+        torch.manual_seed(0)
+        model = sf.SegFormer(2, variant, rate, remat).to(device).train()
+        params = {p.untyped_storage().data_ptr() for p in model.parameters()}
+        gen = torch.Generator(device).manual_seed(0)
+        x = torch.randn(1, crop, crop, 3, generator=gen, device=device)
+        drop = sf.draw_dropout(variant, rate, crop, crop, 1, gen)
+        saved, inputs = {}, []
+
+        def pack(t):
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in params:
+                saved[ptr] = t.untyped_storage().nbytes()
+            return t
+        hooks = [m.register_forward_pre_hook(
+            lambda m, args: inputs.append(args[0].nbytes))
+            for m in model.modules() if isinstance(m, sf.Block)]
+        with FlopCounterMode(display=False) as counter:
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                model(x, drop)
+        for h in hooks:
+            h.remove()
+        tag = "remat" if remat else "no_remat"
+        out[f"saved_bytes_{tag}"] = sum(saved.values()) + (
+            sum(inputs) if remat else 0)
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["fwd_flop"] = counter.get_total_flops()
+    out["blocks_fwd_flop"] = sum(
+        sum(v.values()) for k, v in counter.get_flop_counts().items()
+        if re.fullmatch(r".*\.backbone\.block\d+_\d+", k))
+    out["step_flop_no_remat"] = 3 * out["fwd_flop"]
+    out["step_flop_remat"] = 3 * out["fwd_flop"] + out["blocks_fwd_flop"]
+    return out
+
+
+def phase_attention(dev, n: int = 144, crop: int = 256,
+                    variant: str = "mit_b4") -> dict:
+    """``segformer.attention`` forward and backward at each stage's shapes
+    of one search step (``n`` crops), timed with CUDA events beside
+    ``F.scaled_dot_product_attention`` on the same inputs (the largest
+    difference of its output is printed) and beside its bound: the f32
+    operations of the two batched matmuls forward and backward, or the
+    bytes of q, k, v and the output gradient read once and of the output
+    and the three gradients written once. Per step: each stage's time
+    times its blocks, plus one more forward per block under remat."""
+    import torch.nn.functional as F
+    from aadg_tpu_torch.models import segformer as sf
+    dims, depths, heads, srs, _ = sf.VARIANTS[variant]
+    gen = torch.Generator(dev).manual_seed(0)
+    side = (crop - 1) // 4 + 1          # patch_embed1's output
+    stages, per_step = [], {"ms": 0.0, "fwd_ms": 0.0, "library_ms": 0.0,
+                            "bound_ms": 0.0}
+    for i in range(4):
+        hd, nh = dims[i] // heads[i], heads[i]
+        t, m = side * side, (-(-side // srs[i])) ** 2   # tokens, keys
+        q = torch.randn(n, nh, t, hd, generator=gen, device=dev)
+        k = torch.randn(n, nh, m, hd, generator=gen, device=dev)
+        v = torch.randn(n, nh, m, hd, generator=gen, device=dev)
+        g = torch.randn(n, nh, t, hd, generator=gen, device=dev)
+        for a in (q, k, v):
+            a.requires_grad_()
+
+        def run(fn, backward=True):
+            for a in (q, k, v):
+                a.grad = None
+            o = fn(q, k, v)
+            if backward:
+                o.backward(g)
+            return o
+        with torch.no_grad():
+            diff = float((sf.attention(q, k, v)
+                          - F.scaled_dot_product_attention(q, k, v))
+                         .abs().max())
+        b, by = bound_ms(4 * n * nh * hd * (4 * t + 4 * m),
+                         3 * 4 * n * nh * t * m * hd)
+        row = {"stage": i + 1, "blocks": depths[i],
+               "shape": [n, nh, t, m, hd],
+               "ms": time_ms(lambda: run(sf.attention), iters=10),
+               "fwd_ms": time_ms(lambda: run(sf.attention, False), iters=10),
+               "library_ms": time_ms(
+                   lambda: run(F.scaled_dot_product_attention), iters=10),
+               "bound_ms": b, "bound_by": by, "library_max_abs_diff": diff}
+        stages.append(row)
+        for key in per_step:
+            per_step[key] += depths[i] * row[key]
+        log(f"[segformer attention] stage {i + 1} "
+            f"{'x'.join(map(str, row['shape']))} (n, heads, tokens, keys, "
+            f"dim): forward+backward {row['ms']:.4f} ms, forward "
+            f"{row['fwd_ms']:.4f} ms (scaled_dot_product_attention "
+            f"{row['library_ms']:.4f}, output within {diff:.3g}; bound "
+            f"{b:.4f} by {by}) x {depths[i]} blocks")
+        del q, k, v, g
+        side = (side - 1) // 2 + 1      # the next stage's 3x3 stride 2
+    per_step["remat_ms"] = per_step["ms"] + per_step["fwd_ms"]
+    log(f"[segformer attention] per search step: {per_step['ms']:.2f} ms "
+        f"forward+backward, {per_step['remat_ms']:.2f} ms with remat's "
+        f"second forward (scaled_dot_product_attention "
+        f"{per_step['library_ms']:.2f}, bound {per_step['bound_ms']:.2f})")
+    return {"stages": stages, "per_step": per_step}
+
+
+def phase_remat(dev, task: Task, steps: int = 3) -> dict:
+    """One full-width search step with TPU.REMAT true, then false: the
+    median of ``steps`` timed steps after a warm-up step, and the peak
+    memory allocated from building the state to the last step. Without
+    remat the step may not fit in the card's memory; only that run's
+    torch.cuda.OutOfMemoryError is caught, and printed as the finding."""
+    res = {}
+    for remat in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            one = flagship_step(dev, "search", task,
+                                ["TPU.REMAT", str(remat)])
+            times = []
+            for i in range(steps + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                if i:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            res[remat] = {"median_ms": statistics.median(times),
+                          "steps_ms": times}
+        except torch.cuda.OutOfMemoryError as e:
+            if remat:
+                raise
+            res[remat] = {"oom": str(e).splitlines()[0]}
+        one = None
+        res[remat]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = res[remat]
+        log(f"[{task.prefix}remat] search step with TPU.REMAT {remat}: "
+            + (f"median {r['median_ms']:.1f} ms over {steps} steps "
+               f"({[round(t, 1) for t in r['steps_ms']]})" if "oom" not in r
+               else f"does not fit: {r['oom']}")
+            + f"; peak memory allocated {r['peak_gib']:.2f} GiB of "
+            f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f}")
+    costs = segformer_costs(dev)
+    log(f"[{task.prefix}remat] MiT-b4 + head per 256^2 image: "
+        f"{costs['params']} parameters, forward {costs['fwd_flop'] / 1e9:.3f}"
+        f" GFLOP ({costs['blocks_fwd_flop'] / 1e9:.3f} in the blocks), "
+        f"forward+backward {costs['step_flop_no_remat'] / 1e9:.3f} GFLOP "
+        f"({costs['step_flop_remat'] / 1e9:.3f} with remat); saved for the "
+        f"backward {costs['saved_bytes_no_remat'] / 2**20:.1f} MiB "
+        f"({costs['saved_bytes_remat'] / 2**20:.1f} MiB with remat)")
+    return {"remat": res[True], "no_remat": res[False], "costs": costs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -855,8 +1060,8 @@ def main() -> int:
         f"cudnn {torch.backends.cudnn.allow_tf32}")
     phase_build()
     rows = phase_kernels(dev)
-    by_path = {}
-    for task in (OPTIC, RVS):
+    by_path, profiles = {}, {}
+    for task in (OPTIC, RVS, SEGFORMER):
         p = task.prefix
         phase_reference(dev, task)
         by_path[p + "search"], search_dir = phase_search_path(dev, task)
@@ -865,7 +1070,12 @@ def main() -> int:
         phase_train_reference(dev, task)
         by_path[p + "test"] = phase_test_path(task, train_dir, search_dir)
         for kind in ("search", "train"):
-            phase_profile(dev, kind, task)
+            profiles[p + kind] = phase_profile(dev, kind, task)
+    attn = phase_attention(dev)["per_step"]
+    log(f"[segformer attention] share of the profiled search step's device "
+        f"time ({profiles['segformer_search']['busy_ms']:.1f} ms): "
+        f"{attn['remat_ms'] / profiles['segformer_search']['busy_ms']:.3f}")
+    phase_remat(dev, SEGFORMER)
     for r in rows:
         r["launches"] = by_path["search"][r["name"]]
         r["launches_by_path"] = {p: v[r["name"]] for p, v in by_path.items()}

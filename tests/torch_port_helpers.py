@@ -97,6 +97,12 @@ RVS_OPTS = ["DATASET.NAME", "synthetic_rvs", "TPU.CROP_SIZE", "32",
             "TRAIN.BATCH_SIZE", "1", "CONTROLLER.M", "2",
             "TPU.COMPUTE_DTYPE", "float32", "TRAIN.WD", "0.0001"]
 RVS_CFG = "experiments/rvs_sinkhorn/diversity_ex.yaml"
+# the SegFormer config cut to MiT-b0 at crop 64 with stochastic depth 0.5,
+# so the 6 crops of a search step drop branches; the JAX model runs
+# without remat (its masks are probed from the unlifted blocks) and the
+# port's with it
+SEG_CFG = "experiments/zoo/segformer_b4_optic.yaml"
+SEG_OPTS = OPTS + ["MODEL.BACKBONE", "mit_b0", "MODEL.DROP_PATH_RATE", "0.5"]
 
 
 def _capture():
@@ -114,9 +120,15 @@ def _np(tree):
 def step_pair(task: str = "optic"):
     """(JAX entities with gradient-capturing optimizers, JAX state, port
     entities, raw batch (1, 3, 64, 64, 3)) at the flagship config of
-    ``task`` cut to B=1, M=2, f32: optic at crop 64, rvs at crop 32."""
-    cfg, opts, crop = ((CFG, OPTS, CROP) if task == "optic"
-                       else (RVS_CFG, RVS_OPTS, RVS_CROP))
+    ``task`` cut to B=1, M=2, f32: optic at crop 64, rvs at crop 32;
+    ``segformer`` is the optic task on ``SEG_CFG``/``SEG_OPTS``."""
+    cfg, opts, crop = {"optic": (CFG, OPTS, CROP),
+                       "rvs": (RVS_CFG, RVS_OPTS, RVS_CROP),
+                       "segformer": (SEG_CFG, SEG_OPTS, CROP)}[task]
+    port_opts = opts
+    if task == "segformer":
+        opts, port_opts = (opts + ["TPU.REMAT", "False"],
+                           opts + ["TPU.REMAT", "True"])
     jcfg = jax_load_config(cfg, opts)
     jent = jstate.build_entities(jcfg, "search", steps_per_epoch=1)
     jent = jent._replace(model_tx=_capture(), dis_tx=_capture())
@@ -130,15 +142,56 @@ def step_pair(task: str = "optic"):
         seg_opt=jent.model_tx.init(variables["params"]),
         dis_params=dis_params, dis_stats={},
         dis_opt=jent.dis_tx.init(dis_params))
-    tent = tstate.build_entities(load_config(cfg, opts), "search",
+    tent = tstate.build_entities(load_config(cfg, port_opts), "search",
                                  steps_per_epoch=1, device="cpu")
-    ds = SyntheticDataset(task, n_per_domain=1, size=64)
+    ds = SyntheticDataset("rvs" if task == "rvs" else "optic",
+                          n_per_domain=1, size=64)
     imgs = np.stack([d.images[0] for d in ds.domains])[None].astype(
         np.float32)                                   # (1, 3, 64, 64, 3)
     masks = np.stack([d.labels[0] for d in ds.domains])[None].astype(
         np.float32)
     dcs = np.arange(3, dtype=np.int32)[None]
     return jent, sd, tent, (imgs, masks, dcs)
+
+
+def dropout_draws(model, variables, shape, key):
+    """The masks a train-mode ``apply`` of the flax SegFormer ``model``
+    (unlifted blocks) on inputs of ``shape`` draws from the dropout key
+    ``key``, as the port's ``SegFormerDropout`` of bool numpy arrays.
+    Every ``DropPath`` and ``Dropout`` call is run on ones instead of its
+    input, so its output is nonzero exactly where its mask keeps; the
+    masks depend on the key and the module path, not on the values."""
+    from flax import linen as nn
+    from aadg_tpu.models.segformer import VARIANTS, DropPath
+    from aadg_tpu_torch.models.segformer import SegFormerDropout
+
+    def probe(variables, key):
+        seen = {}
+
+        def record(next_fun, args, kwargs, context):
+            m = context.module
+            if (context.method_name != "__call__"
+                    or not isinstance(m, (DropPath, nn.Dropout))):
+                return next_fun(*args, **kwargs)
+            out = next_fun(jnp.ones_like(args[0]), *args[1:], **kwargs)
+            seen["/".join(m.scope.path)] = out != 0
+            return out
+        with nn.intercept_methods(record):
+            model.apply(variables, jnp.zeros(shape), train=True,
+                        mutable=["batch_stats"], rngs={"dropout": key})
+        return seen
+
+    seen = jax.jit(probe)(variables, key)
+    depths = VARIANTS[model.variant][1]
+    paths = np.stack([
+        np.stack([np.asarray(seen[f"backbone/block{i + 1}_{j}/{dp}"])[:, 0, 0]
+                  for dp in ("dp1", "dp2")])
+        for i in range(4) for j in range(depths[i])])
+    return SegFormerDropout(paths, np.asarray(seen["head/Dropout_0"]))
+
+
+def torch_dropout(draws):
+    return type(draws)(*(torch.from_numpy(np.array(a)) for a in draws))
 
 
 def sharpen_seg_head(sd, gain=50.0, threshold=0.75):
@@ -195,6 +248,23 @@ def check_grads(module, jgrads, tight: bool):
     for k, g, j in pairs:
         if np.linalg.norm(j) > 0.01 * top:
             assert np.linalg.norm(g - j) <= 0.25 * np.linalg.norm(j), k
+
+
+def check_grads_floored(module, jgrads):
+    """Every trainable parameter's ``.grad`` within 1e-3 of the JAX
+    gradient's largest magnitude in that tensor, or within 1e-7 of the
+    module's largest gradient for a tensor whose gradient vanishes
+    (SegFormer's ``linear_c*`` biases: a per-channel shift before a
+    train-mode BatchNorm has gradient 0 up to f32 rounding)."""
+    ref = from_flax({"params": _np(jgrads)})
+    top = max(float(np.abs(v.numpy()).max()) for v in ref.values())
+    names = [k for k, p in module.named_parameters() if p.requires_grad]
+    assert sorted(names) == sorted(ref)
+    for k, p in module.named_parameters():
+        j = ref[k].numpy()
+        atol = max(1e-3 * float(np.abs(j).max()), 1e-7 * top)
+        np.testing.assert_allclose(p.grad.numpy(), j, rtol=0, atol=atol,
+                                   err_msg=k)
 
 
 def check_stats(model, jstats):
