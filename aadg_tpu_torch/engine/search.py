@@ -6,12 +6,13 @@ the LSTM controller, run the search steps, sum and normalize the rewards,
 EMA-update the momentum branch and update the controller. After every
 epoch the model is validated on the held-out domain and the best average
 dice is tracked; every ``TPU.CHECKPOINT_FREQ`` search epochs a checkpoint
-is written. ``TPU.AUTO_RESUME`` continues the newest unfinished run of the
-same config. The run ends with ``final_model_state.pt``,
-``final_controller_state.pt``, the op/magnitude probability trajectories
-and ``final_result.json``.
+is written on a background thread. ``TPU.AUTO_RESUME`` continues the
+newest unfinished run of the same config. ``TPU.PROFILE`` traces the
+first epoch of the run with ``torch.profiler`` into ``<run dir>/profile``.
+The run ends with ``final_model_state.pt``, ``final_controller_state.pt``,
+the op/magnitude probability trajectories and ``final_result.json``.
 
-Not ported yet (ROADMAP queue 1): data parallelism, profiling.
+Not ported yet (ROADMAP queue 1): data parallelism.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from ..losses import normalize_rewards
 from ..models.controller import policies_to_tensor
 from ..models.discriminator import momentum_update, synchronize_parameters
 from ..utils.checkpoint import (find_resume_checkpoint, load_checkpoint,
-                                save_array, save_checkpoint, save_json)
+                                save_array, save_checkpoint, save_json,
+                                wait_pending_checkpoints)
 from ..utils.logging import run_logging
 from .evaluate import validate
 from .rl import make_controller_update
@@ -62,6 +64,29 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def start_trace(device: torch.device):
+    """A running ``torch.profiler`` trace of the host, and of the card when
+    ``device`` is one."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
+def end_trace(prof, device: torch.device, out_dir: str, logger) -> None:
+    """Wait for the device, stop ``prof`` and write its trace to
+    ``<out_dir>/profile/trace.json``."""
+    sync(device)
+    prof.__exit__(None, None, None)
+    trace_dir = os.path.join(out_dir, "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    logger.info(f"profiler trace written to {trace_dir}")
+
+
 def load_stores(cfg, device):
     """(train store, test store, steps per epoch)."""
     store = make_train_store(*load_train_arrays(build_dataset(cfg, "train")),
@@ -74,6 +99,15 @@ def load_stores(cfg, device):
     steps = (int(cfg.TPU.STEPS_PER_EPOCH)
              or store.steps_per_epoch(int(cfg.TRAIN.BATCH_SIZE), length_mult))
     return store, test_store, steps
+
+
+def write_timer(record: dict):
+    """``on_joined`` of a background checkpoint: the writer thread's own
+    seconds go to ``record["checkpoint_write_seconds"]`` (the time in the
+    loop is ``checkpoint_seconds``)."""
+    def joined(seconds: float) -> None:
+        record["checkpoint_write_seconds"] = seconds
+    return joined
 
 
 def try_resume(cfg, out_dir, logger):
@@ -156,7 +190,7 @@ def _search(cfg, device, logger, out_dir, writer):
 
     ent = build_entities(cfg, "search", steps_per_epoch=steps, device=device,
                          logger=logger)
-    sd, cs = init_state(ent, int(cfg.SEED))
+    sd, cs = init_state(ent, int(cfg.SEED), str(cfg.TPU.PRETRAINED))
     gen = torch.Generator(device).manual_seed(int(cfg.SEED))
     M = int(cfg.CONTROLLER.M)
     h, w = store.images.shape[2], store.images.shape[3]
@@ -181,6 +215,8 @@ def _search(cfg, device, logger, out_dir, writer):
     warmup = int(cfg.TRAIN.WARMUP_EPOCH)
     mag_traj, op_traj, records, step_seconds = [], [], [], []
     for epoch in range(begin, int(cfg.TRAIN.END_EPOCH)):
+        prof = (start_trace(device) if cfg.TPU.PROFILE and epoch == begin
+                else None)
         t0 = time.perf_counter()
         ms_list, rs = [], []
         if epoch < warmup:
@@ -226,6 +262,8 @@ def _search(cfg, device, logger, out_dir, writer):
                 policies.cpu().numpy(), ent.op_names, ent.ctrl_spec)))
             for k, v in ms.items():
                 writer.add_scalar(f"train_{k}", v, epoch)
+        if prof is not None:
+            end_trace(prof, device, out_dir, logger)
 
         t0 = time.perf_counter()
         vm, is_best = validate_and_track(ent, sd, test_store, cfg, epoch,
@@ -254,10 +292,12 @@ def _search(cfg, device, logger, out_dir, writer):
                      "epoch": epoch + 1, "best_dsc": best["dsc"],
                      "best_metric": dict(best["metric"]),
                      "generator": gen.get_state()},
-                    is_best, out_dir, f"checkpoint_{epoch}.pt")
+                    is_best, out_dir, f"checkpoint_{epoch}.pt",
+                    background=True, on_joined=write_timer(record))
                 record["checkpoint_seconds"] = time.perf_counter() - t0
         records.append(record)
 
+    wait_pending_checkpoints()
     save_checkpoint({"model": sd.model.state_dict()}, False, out_dir,
                     "final_model_state.pt", update_latest=False)
     save_checkpoint({"controller": cs.controller.state_dict()}, False,

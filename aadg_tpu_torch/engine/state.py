@@ -196,9 +196,15 @@ def build_entities(cfg: CfgNode, mode: str = "search",
         draw_dropout=dropout_drawer(cfg, crop))
 
 
-def init_state(ent: Entities, seed: int):
+def init_state(ent: Entities, seed: int, pretrained: str = ""):
     """Seeded modules on ``ent.device`` and their optimizers. Returns
-    (SegDisState, CtrlState). The global RNG is left as it was."""
+    (SegDisState, CtrlState). The global RNG is left as it was.
+    ``pretrained`` (``TPU.PRETRAINED``, the encoder weights the JAX
+    ``init_state`` grafts) raises: the loader is not ported yet."""
+    if pretrained:
+        raise NotImplementedError(
+            f"TPU.PRETRAINED {pretrained!r}: loading pretrained encoder "
+            "weights is not ported yet (ROADMAP queue 1, item 12)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = ent.make_model()

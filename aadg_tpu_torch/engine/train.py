@@ -8,9 +8,9 @@ policy (1, Q, L, 2) from the controller, loaded from
 ``TEST.MODEL_DIR/final_controller_state.pt`` when a search left one there,
 and every step uses the policy-augmented batch on a coin of 0.5. After
 every epoch the model is validated, the best average dice is tracked and a
-checkpoint is written; ``TPU.AUTO_RESUME`` continues the newest unfinished
-run of the same config. The run ends with ``final_state.pt`` and
-``final_result.json``.
+checkpoint is written on a background thread; ``TPU.AUTO_RESUME``
+continues the newest unfinished run of the same config. The run ends with
+``final_state.pt`` and ``final_result.json``.
 """
 
 from __future__ import annotations
@@ -22,10 +22,11 @@ import torch
 
 from ..models.controller import policies_to_tensor
 from ..data.stores import draw_batch_indices, gather_batch
-from ..utils.checkpoint import load_checkpoint, save_checkpoint, save_json
+from ..utils.checkpoint import (load_checkpoint, save_checkpoint, save_json,
+                                wait_pending_checkpoints)
 from ..utils.logging import run_logging
 from .search import (initial_best, load_stores, set_precision_flags, sync,
-                     try_resume, validate_and_track)
+                     try_resume, validate_and_track, write_timer)
 from .state import build_entities, init_state
 from .steps import (draw_pretrain, draw_train, make_autoaug_train_step,
                     make_pretrain_step)
@@ -47,7 +48,7 @@ def _train(cfg, device, logger, out_dir, writer):
     batch_size = int(cfg.TRAIN.BATCH_SIZE)
     ent = build_entities(cfg, "train", steps_per_epoch=steps, device=device,
                          logger=logger)
-    sd, cs = init_state(ent, int(cfg.SEED))
+    sd, cs = init_state(ent, int(cfg.SEED), str(cfg.TPU.PRETRAINED))
     gen = torch.Generator(device).manual_seed(int(cfg.SEED))
     h, w = store.images.shape[2], store.images.shape[3]
     n0 = batch_size * store.n_domains
@@ -113,10 +114,12 @@ def _train(cfg, device, logger, out_dir, writer):
                          "best_dsc": best["dsc"],
                          "best_metric": dict(best["metric"]),
                          "generator": gen.get_state()},
-                        is_best, out_dir, f"checkpoint_{epoch}.pt")
+                        is_best, out_dir, f"checkpoint_{epoch}.pt",
+                        background=True, on_joined=write_timer(record))
         record["checkpoint_seconds"] = time.perf_counter() - t0
         records.append(record)
 
+    wait_pending_checkpoints()
     save_checkpoint({"model": sd.model.state_dict()}, False, out_dir,
                     "final_state.pt", update_latest=False)
     logger.info("Best: " + str(best["metric"]))

@@ -1,5 +1,6 @@
 """Model factory of the PyTorch/CUDA port (port of
-``aadg_tpu/models/__init__.py:24-64`` for the three ported models)."""
+``aadg_tpu/models/__init__.py:24-82`` for the ported models: DeepLabV3+,
+UNet, SegFormer and the zoo segmentors of ``models/zoo``)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from . import segformer
 from .deeplab import DeepLabV3Plus
 from .segformer import SegFormer
 from .unet import UNet
+from .zoo import builder as zoo_builder
 
 _MODELS = {"deeplabv3+": DeepLabV3Plus, "unet": UNet, "segformer": SegFormer}
 
@@ -25,17 +27,28 @@ def domain_parser(dataset: str) -> int:
 
 
 def channel_parser(backbone: str) -> int:
-    return {"mobilenet_v2": 1280, "unet": 512,
-            "mit_b0": 256, "mit_b1": 512, "mit_b2": 512, "mit_b3": 512
-            }[backbone]
+    table = {"mobilenet_v2": 1280, "unet": 512,
+             "mit_b0": 256, "mit_b1": 512, "mit_b2": 512, "mit_b3": 512}
+    if backbone in table:
+        return table[backbone]
+    return zoo_builder.backbone_channels(backbone)
 
 
 def _variant(cfg) -> str:
     return cfg.MODEL.BACKBONE or "mit_b1"
 
 
+def _zoo(cfg) -> bool:
+    """True for a zoo name; raises for a zoo architecture or backbone that
+    is not ported."""
+    if cfg.MODEL.NAME not in zoo_builder.ZOO_ARCHS:
+        return False
+    zoo_builder.check(cfg.MODEL.NAME, cfg.MODEL.BACKBONE)
+    return True
+
+
 def model_class(cfg) -> type:
-    """The class ``build_model`` makes for ``cfg``."""
+    """The class ``build_model`` makes for ``cfg`` (not for a zoo name)."""
     name = cfg.MODEL.NAME
     if name not in _MODELS:
         raise NotImplementedError(
@@ -49,6 +62,8 @@ def model_class(cfg) -> type:
 
 def feature_dim(cfg) -> int:
     """The width of the pooled feature the discriminator reads."""
+    if _zoo(cfg):
+        return zoo_builder.backbone_channels(cfg.MODEL.BACKBONE)
     cls = model_class(cfg)
     if cls is SegFormer:
         return segformer.VARIANTS[_variant(cfg)][0][-1]
@@ -57,8 +72,13 @@ def feature_dim(cfg) -> int:
 
 def dropout_drawer(cfg, crop: int) -> Optional[Callable]:
     """``(n, generator) -> masks`` of one train-mode forward of ``n``
-    crop x crop images, for a model with dropout (SegFormer); None for
-    the others, which draw nothing."""
+    crop x crop images, for a model with dropout (SegFormer, the zoo's
+    classifier dropout); None for the others, which draw nothing."""
+    if _zoo(cfg):
+        return functools.partial(zoo_builder.draw_dropout,
+                                 zoo_builder.dropout_shapes(
+                                     cfg.MODEL.NAME, cfg.MODEL.BACKBONE,
+                                     crop))
     if model_class(cfg) is not SegFormer:
         return None
     return functools.partial(segformer.draw_dropout, _variant(cfg),
@@ -69,7 +89,11 @@ def build_model(cfg, num_classes: int) -> nn.Module:
     """The segmentation model of ``cfg`` with ``num_classes`` outputs:
     ``model(x) -> (logits, pooled feature)``, NHWC. ``TPU.REMAT``
     checkpoints the blocks of DeepLabV3+'s encoder and of SegFormer's (the
-    JAX UNet has no remat)."""
+    JAX UNet and zoo have no remat)."""
+    if _zoo(cfg):
+        return zoo_builder.build_segmentor(cfg.MODEL.NAME,
+                                           cfg.MODEL.BACKBONE,
+                                           num_classes)[0]
     cls = model_class(cfg)
     remat = bool(cfg.TPU.REMAT)
     if cls is UNet:

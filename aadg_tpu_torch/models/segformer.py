@@ -93,7 +93,7 @@ def dense(in_features: int, out_features: int) -> nn.Linear:
     return layer
 
 
-def _keep_where(x: torch.Tensor, mask: torch.Tensor, rate: float):
+def keep_where(x: torch.Tensor, mask: torch.Tensor, rate: float):
     """Dropout's apply: ``x / keep`` where ``mask``, else 0."""
     return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
 
@@ -183,7 +183,7 @@ class Block(nn.Module):
     def _branch(self, y, keep: Optional[torch.Tensor]):
         if keep is None or self.drop_path == 0.0:
             return y
-        return _keep_where(y, keep[:, None, None], self.drop_path)
+        return keep_where(y, keep[:, None, None], self.drop_path)
 
     def forward(self, x, h: int, w: int, keep1=None, keep2=None):
         x = x + self._branch(self.attn(self.norm1(x), h, w), keep1)
@@ -258,7 +258,7 @@ class SegFormerHead(nn.Module):
         x = F.relu(self.BatchNorm_0(self.linear_fuse(torch.cat(ups[::-1],
                                                                dim=1))))
         if mask is not None:
-            x = _keep_where(x, mask.permute(0, 3, 1, 2), HEAD_DROPOUT)
+            x = keep_where(x, mask.permute(0, 3, 1, 2), HEAD_DROPOUT)
         return self.linear_pred(x)
 
 

@@ -2,8 +2,11 @@
 
 The port's modules carry the flax module names, so a flax path maps to a
 state_dict key by joining with dots and renaming the leaf: ``kernel`` ->
-``weight`` (conv HWIO -> OIHW, which also takes a depthwise (kh, kw, 1, C)
-to (C, 1, kh, kw); Dense (in, out) -> (out, in)), ``scale`` -> ``weight``,
+``weight`` (conv HWIO -> OIHW, which also takes a grouped (kh, kw, in/g,
+out) kernel to (out, in/g, kh, kw) and a depthwise (kh, kw, 1, C) to
+(C, 1, kh, kw); a flax ConvTranspose kernel (kh, kw, in, out) lands as
+(out, in, kh, kw), the layout ``models/zoo/backbones.py::DeconvModule``
+keeps; Dense (in, out) -> (out, in)), ``scale`` -> ``weight``,
 ``bias`` -> ``bias``, and the batch statistics ``mean``/``var`` ->
 ``running_mean``/``running_var``. Applies to the segmentation model and the
 discriminator; the controller's plain parameter dict has its own map.

@@ -3,9 +3,18 @@ auto-resume, on the CPU: an exact round trip of the whole search state,
 the ``latest`` link and ``model_best`` copy, the choice of the run to
 resume among sibling run directories, a completed run starting fresh, and
 a search of two epochs that is bit-identical to one epoch plus a resumed
-one."""
+one (its checkpoints written on the background thread).
+
+Background writes: the state is copied to the host before ``save``
+returns, so updating the modules afterwards does not reach the file; a
+writer's exception is re-raised by ``wait_pending_checkpoints`` (and by a
+load, which waits first); two saves to one directory run one after the
+other, the second joining the first; the writer's own seconds reach
+``on_joined`` when it is joined."""
 
 import os
+import threading
+import time
 from pathlib import Path
 
 import pytest
@@ -177,3 +186,78 @@ def test_resumed_search_is_bit_identical(tmp_path):
         want = ck.load_checkpoint(os.path.join(whole["out_dir"], name))
         got = ck.load_checkpoint(os.path.join(resumed["out_dir"], name))
         _assert_same(got, want, name)
+
+
+def test_background_save_copies_the_state_first(trained, tmp_path):
+    ent, sd, cs, gen = trained
+    want = {k: v.clone() for k, v in sd.model.state_dict().items()}
+    path = ck.save_checkpoint({"model": sd.model.state_dict()}, False,
+                              str(tmp_path), "c.pt", background=True)
+    with torch.no_grad():
+        for p in sd.model.parameters():
+            p.add_(1.0)
+    ck.wait_pending_checkpoints()
+    _assert_same(dict(ck.load_checkpoint(path)["model"]), want)
+    with torch.no_grad():
+        for p in sd.model.parameters():
+            p.sub_(1.0)
+
+
+@pytest.fixture
+def failing_write(monkeypatch):
+    """torch.save raising on the writer thread."""
+    def fail(*args, **kwargs):
+        raise OSError("disk full")
+    monkeypatch.setattr(ck.torch, "save", fail)
+
+
+@pytest.mark.parametrize("join", ["wait", "load", "next_save"])
+def test_failing_writer_reraises(tmp_path, failing_write, monkeypatch,
+                                 join):
+    ck.save_checkpoint({"epoch": 1}, False, str(tmp_path), "c.pt",
+                       background=True)
+    with pytest.raises(OSError, match="disk full"):
+        if join == "wait":
+            ck.wait_pending_checkpoints()
+        elif join == "load":
+            ck.load_checkpoint(str(tmp_path / "c.pt"))
+        else:
+            ck.save_checkpoint({"epoch": 2}, False, str(tmp_path), "d.pt",
+                               background=True)
+    monkeypatch.undo()
+    ck.wait_pending_checkpoints()   # nothing left pending
+    assert not ck._PENDING_SAVE
+
+
+def test_saves_to_one_directory_serialize(tmp_path, monkeypatch):
+    """The second save joins the first before it starts: the writes never
+    overlap, ``latest`` ends on the second, and each writer's seconds
+    reach its ``on_joined``."""
+    save, active, seen = torch.save, [], []
+    lock = threading.Lock()
+
+    def slow_save(obj, path):
+        with lock:
+            active.append(path)
+            assert len(active) == 1, active
+        time.sleep(0.2)
+        save(obj, path)
+        with lock:
+            active.remove(path)
+    monkeypatch.setattr(ck.torch, "save", slow_save)
+    out = str(tmp_path)
+    for epoch in (1, 2):
+        ck.save_checkpoint({"epoch": epoch}, False, out, "c.pt",
+                           background=True, on_joined=seen.append)
+    assert len(seen) == 1 and seen[0] >= 0.2   # the first, joined
+    ck.wait_pending_checkpoints()
+    assert len(seen) == 2 and seen[1] >= 0.2
+    assert ck.load_checkpoint(str(tmp_path / "latest.pt"))["epoch"] == 2
+
+
+def test_loop_records_in_loop_and_writer_seconds(tmp_path):
+    run = _search(tmp_path, "TRAIN.END_EPOCH", "2")
+    for e in run["epochs"]:
+        assert 0 < e["checkpoint_seconds"]
+        assert 0 < e["checkpoint_write_seconds"]
+    assert not ck._PENDING_SAVE

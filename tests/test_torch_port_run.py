@@ -8,7 +8,12 @@ synthetic_optic at crop 64, B=2, M=2 (f32, as the CPU parity tests run).
   ``--mode test --output_type seg|image`` run on what the search left;
 - test mode's per-image F1 agrees with ``aadg_tpu``'s ``run_test`` from
   the same weights within 1e-3, and its PNG maps with the JAX model's
-  thresholded maps on at least 99.9% of the pixels.
+  thresholded maps on at least 99.9% of the pixels;
+- ``TPU.PROFILE True`` writes one ``torch.profiler`` trace of the first
+  epoch (the warmup's steps, none of the search epoch's) to
+  ``<run dir>/profile`` and logs where; ``TPU.PRETRAINED`` set makes
+  search and train raise ``NotImplementedError`` citing ROADMAP queue 1,
+  item 12, instead of training from random weights.
 """
 
 import csv
@@ -212,3 +217,25 @@ def test_module_entry_point_runs(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "controller loss" in proc.stderr
     assert "Test Epoch 1" in proc.stderr
+
+
+def test_profile_traces_the_first_epoch(tmp_path):
+    summary = _main(tmp_path, "--smoke_test", "TPU.PROFILE", "True")
+    out = Path(summary["out_dir"])
+    files = list((out / "profile").iterdir())
+    assert [f.name for f in files] == ["trace.json"]
+    assert files[0].stat().st_size > 0
+    names = {e.get("name") for e in json.loads(files[0].read_text())[
+        "traceEvents"]}
+    assert "pretrain/forward_backward" in names      # epoch 0, warmup
+    assert "search/augment" not in names             # epoch 1, search
+    log = (out / "train.log").read_text()
+    assert log.count("profiler trace written to") == 1
+    assert f"profiler trace written to {out / 'profile'}" in log
+
+
+@pytest.mark.parametrize("mode", ["search", "train"])
+def test_pretrained_weights_raise(tmp_path, mode):
+    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+        _main(tmp_path, "--mode", mode, "--smoke_test", "TPU.PRETRAINED",
+              str(tmp_path / "encoder.msgpack"))

@@ -250,9 +250,9 @@ def check_grads(module, jgrads, tight: bool):
             assert np.linalg.norm(g - j) <= 0.25 * np.linalg.norm(j), k
 
 
-def check_grads_floored(module, jgrads):
+def check_grads_floored(module, jgrads, floor: float = 1e-7):
     """Every trainable parameter's ``.grad`` within 1e-3 of the JAX
-    gradient's largest magnitude in that tensor, or within 1e-7 of the
+    gradient's largest magnitude in that tensor, or within ``floor`` of the
     module's largest gradient for a tensor whose gradient vanishes
     (SegFormer's ``linear_c*`` biases: a per-channel shift before a
     train-mode BatchNorm has gradient 0 up to f32 rounding)."""
@@ -262,7 +262,7 @@ def check_grads_floored(module, jgrads):
     assert sorted(names) == sorted(ref)
     for k, p in module.named_parameters():
         j = ref[k].numpy()
-        atol = max(1e-3 * float(np.abs(j).max()), 1e-7 * top)
+        atol = max(1e-3 * float(np.abs(j).max()), floor * top)
         np.testing.assert_allclose(p.grad.numpy(), j, rtol=0, atol=atol,
                                    err_msg=k)
 
