@@ -30,13 +30,19 @@ from ..ops import augment as aug_mod
 class ScheduledAdam:
     """torch.optim.Adam (L2 weight decay folded into the gradient before
     the moments, as optax ``add_decayed_weights`` + ``scale_by_adam``) whose
-    learning rate is ``schedule(count)`` at update ``count`` = 0, 1, ..."""
+    learning rate is ``schedule(count)`` at update ``count`` = 0, 1, ...
+
+    optax updates every parameter at every step, a parameter the loss does
+    not reach with a zero gradient (then only its decay and its moments
+    move it). torch's Adam skips a parameter whose ``.grad`` is None, so
+    ``step`` gives each such parameter a zero gradient first."""
 
     def __init__(self, params, schedule: Callable[[int], float],
                  wd: float = 0.0):
         self.schedule = schedule
         self.count = 0
-        self.opt = torch.optim.Adam(list(params), lr=schedule(0),
+        self.params = list(params)
+        self.opt = torch.optim.Adam(self.params, lr=schedule(0),
                                     betas=(0.9, 0.999), eps=1e-8,
                                     weight_decay=wd)
 
@@ -44,6 +50,9 @@ class ScheduledAdam:
         self.opt.zero_grad(set_to_none=True)
 
     def step(self) -> None:
+        for p in self.params:
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         for group in self.opt.param_groups:
             group["lr"] = self.schedule(self.count)
         self.opt.step()

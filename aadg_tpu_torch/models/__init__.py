@@ -39,8 +39,8 @@ def _variant(cfg) -> str:
 
 
 def _zoo(cfg) -> bool:
-    """True for a zoo name; raises for a zoo architecture or backbone that
-    is not ported."""
+    """True for a zoo name; raises for a zoo backbone that is not
+    ported."""
     if cfg.MODEL.NAME not in zoo_builder.ZOO_ARCHS:
         return False
     zoo_builder.check(cfg.MODEL.NAME, cfg.MODEL.BACKBONE)
@@ -63,7 +63,7 @@ def model_class(cfg) -> type:
 def feature_dim(cfg) -> int:
     """The width of the pooled feature the discriminator reads."""
     if _zoo(cfg):
-        return zoo_builder.backbone_channels(cfg.MODEL.BACKBONE)
+        return zoo_builder.feature_dim(cfg.MODEL.NAME, cfg.MODEL.BACKBONE)
     cls = model_class(cfg)
     if cls is SegFormer:
         return segformer.VARIANTS[_variant(cfg)][0][-1]
@@ -72,8 +72,8 @@ def feature_dim(cfg) -> int:
 
 def dropout_drawer(cfg, crop: int) -> Optional[Callable]:
     """``(n, generator) -> masks`` of one train-mode forward of ``n``
-    crop x crop images, for a model with dropout (SegFormer, the zoo's
-    classifier dropout); None for the others, which draw nothing."""
+    crop x crop images, for a model with dropout (SegFormer, the zoo
+    heads' dropouts); None for the others, which draw nothing."""
     if _zoo(cfg):
         return functools.partial(zoo_builder.draw_dropout,
                                  zoo_builder.dropout_shapes(

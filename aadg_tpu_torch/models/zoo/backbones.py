@@ -1,11 +1,12 @@
-"""Zoo backbones (port of ``aadg_tpu/models/zoo/backbones.py`` for the
-backbones the zoo experiment files name), NCHW inside. Each returns a list
-of features and names its widths in ``out_channels``:
+"""Zoo backbones (port of ``aadg_tpu/models/zoo/backbones.py`` except
+ResNeSt, FastSCNN and CGNet), NCHW inside. Each returns a list of features
+and names its widths in ``out_channels``:
 
-- ``ResNetV1c`` (50): deep 3x3 stem, dilations (1, 1, 2, 4), output
-  stride 8; four stages.
-- ``HRNet`` (W18): four parallel branches at strides 4/8/16/32 with full
-  cross-resolution fusion.
+- ``ResNetV1c`` (50, 101): deep 3x3 stem, dilations (1, 1, 2, 4), output
+  stride 8; four stages. ``ResNeXt`` is the same network with grouped
+  3x3 convolutions (32 groups of 4 channels per 64 planes).
+- ``HRNet`` (W18, W32, W48): four parallel branches at strides 4/8/16/32
+  with full cross-resolution fusion.
 - ``MobileNetV3`` ('large'/'small'): inverted residuals with
   squeeze-excite and hard-swish; the three taps the LRASPP head reads.
 - ``UNetBackbone`` (S5-D16): mmseg's configurable UNet; the bottleneck
@@ -26,19 +27,22 @@ from .layers import ConvModule, resize
 
 
 class Bottleneck(nn.Module):
-    """ResNet bottleneck (1x1, dilated 3x3 carrying the stride, 1x1 to
-    ``4 planes``), with a strided 1x1 projection when the shape changes."""
+    """ResNet bottleneck (1x1, dilated 3x3 carrying the stride and split in
+    ``groups``, 1x1 to ``4 planes``), with a strided 1x1 projection when
+    the shape changes. The inner width is ``planes * base_width / 64``
+    per group (ResNeXt); 64 and one group is ResNet's ``planes``."""
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, groups: int = 1, base_width: int = 64):
         super().__init__()
         out_ch = planes * 4
-        self.conv1 = conv(in_ch, planes, 1)
-        self.bn1 = BatchNorm(planes)
-        self.conv2 = conv(planes, planes, 3, stride, dilation=dilation,
-                          padding=dilation)
-        self.bn2 = BatchNorm(planes)
-        self.conv3 = conv(planes, out_ch, 1)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = conv(in_ch, width, 1)
+        self.bn1 = BatchNorm(width)
+        self.conv2 = conv(width, width, 3, stride, groups=groups,
+                          dilation=dilation, padding=dilation)
+        self.bn2 = BatchNorm(width)
+        self.conv3 = conv(width, out_ch, 1)
         self.bn3 = BatchNorm(out_ch)
         self.down = in_ch != out_ch or stride != 1
         if self.down:
@@ -57,11 +61,13 @@ class Bottleneck(nn.Module):
 class ResNetV1c(nn.Module):
     """mmseg's default encoder: stem of three 3x3 convs (the first with
     stride 2) and a 3x3 max pool, then stages of (3, 4, 6, 3) bottlenecks
-    with strides (1, 2, 1, 1) and dilations (1, 1, 2, 4)."""
+    with strides (1, 2, 1, 1) and dilations (1, 1, 2, 4); (3, 4, 23, 3)
+    bottlenecks at depth 101."""
 
-    blocks = {50: (3, 4, 6, 3)}
+    blocks = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
-    def __init__(self, depth: int = 50,
+    def __init__(self, depth: int = 50, groups: int = 1,
+                 base_width: int = 64,
                  dilations: Tuple[int, ...] = (1, 1, 2, 4),
                  strides: Tuple[int, ...] = (1, 2, 1, 1)):
         super().__init__()
@@ -77,7 +83,8 @@ class ResNetV1c(nn.Module):
             planes = 64 * 2 ** s
             for b in range(n):
                 self.add_module(f"layer{s + 1}_{b}", Bottleneck(
-                    ch, planes, strides[s] if b == 0 else 1, dilations[s]))
+                    ch, planes, strides[s] if b == 0 else 1, dilations[s],
+                    groups, base_width))
                 ch = planes * 4
             self.out_channels.append(ch)
 
@@ -92,6 +99,12 @@ class ResNetV1c(nn.Module):
                 x = getattr(self, f"layer{s + 1}_{b}")(x)
             feats.append(x)
         return feats
+
+
+def ResNeXt(depth: int = 50, groups: int = 32,
+            base_width: int = 4) -> ResNetV1c:
+    """ResNeXt (32x4d): ResNetV1c with grouped bottlenecks."""
+    return ResNetV1c(depth, groups, base_width)
 
 
 class BasicBlock(nn.Module):

@@ -112,6 +112,26 @@ class ConvModule(nn.Module):
         return x
 
 
+class DepthwiseSeparableConvModule(nn.Module):
+    """mmcv DepthwiseSeparableConvModule: a depthwise k x k conv (carrying
+    the stride and dilation) with BatchNorm and ReLU, then a pointwise 1x1
+    conv with BatchNorm and ReLU; no biases."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3,
+                 stride: int = 1, dilation: int = 1):
+        super().__init__()
+        self.depthwise = conv(in_ch, in_ch, kernel, stride, groups=in_ch,
+                              dilation=dilation,
+                              padding=dilation * (kernel - 1) // 2)
+        self.dw_bn = BatchNorm(in_ch)
+        self.pointwise = conv(in_ch, features, 1)
+        self.pw_bn = BatchNorm(features)
+
+    def forward(self, x):
+        x = F.relu(self.dw_bn(self.depthwise(x)))
+        return F.relu(self.pw_bn(self.pointwise(x)))
+
+
 def adaptive_avg_pool(x: torch.Tensor, out) -> torch.Tensor:
     """torch AdaptiveAvgPool2d: bin i of an axis of n covers
     [floor(i n / o), ceil((i + 1) n / o)), the JAX package's binning."""

@@ -29,10 +29,18 @@ JAX harness folds its keys. Run it on the card, or with ``--device cpu``::
 
     python -m aadg_tpu_torch.prove_learning [--epochs N] [--full-space] \\
         [--out DIR] [--device cuda|cpu]
+
+``seed_spread`` runs the 4-op test recipe at several seeds and once with
+bf16 convolutions, on the card::
+
+    python -c "from aadg_tpu_torch.prove_learning import seed_spread; \\
+        seed_spread()"
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
 import re
 
@@ -262,6 +270,78 @@ def run_proof(cfg, space, tail: int = 10, device="cuda") -> dict:
             "learned": ab["learned"], "random": ab["random"],
             "rounds": rounds}
 
+
+# the four thresholds of tests/test_learning.py's 4-op proof
+THRESHOLDS = (("late_early", ">", 1.15), ("first_max", "<", 0.30),
+              ("tail_max", ">", 0.45), ("learned_random", ">", 1.2))
+
+
+def thresholds(res: dict) -> dict:
+    """The four numbers of ``run_proof``'s result that the thresholds hold:
+    late-third over early-third raw reward, the first epoch's largest op
+    probability, the tail's largest, learned over random reward."""
+    series = res["reward_series"]
+    third = len(series) // 3
+    early, late = sum(series[:third]) / third, sum(series[-third:]) / third
+    return {"late_early": late / early, "first_max": max(res["first"]),
+            "tail_max": max(res["tail_mean"]),
+            "learned_random": res["learned"] / res["random"]}
+
+
+def met(values: dict) -> dict:
+    return {k: values[k] > v if op == ">" else values[k] < v
+            for k, op, v in THRESHOLDS}
+
+
+@contextlib.contextmanager
+def bf16_convolutions():
+    """Every ``nn.Conv2d`` forward under bf16 autocast, its output cast back
+    to f32, while the block runs; BatchNorm, the losses and the rest stay
+    f32: the precision XLA's default gives f32 convolutions on a TPU."""
+    orig = torch.nn.Conv2d.forward
+
+    def forward(self, x):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return orig(self, x).float()
+    torch.nn.Conv2d.forward = forward
+    try:
+        yield
+    finally:
+        torch.nn.Conv2d.forward = orig
+
+
+def seed_spread() -> list:
+    """The 4-op proof at tests/test_learning.py's recipe (150 epochs, 30
+    warmup, 2 steps, B=4, M=8) at seeds 1023, 1, 2, 3 and 4 in f32, then at
+    seed 1023 with ``bf16_convolutions``, on the card. Prints one line per
+    run with its four thresholds met or missed and writes every number to
+    ``output/seed_spread/seed_spread.json``."""
+    out = "output/seed_spread"
+    set_precision_flags()
+    runs = []
+    for seed, bf16 in ((1023, False), (1, False), (2, False), (3, False),
+                       (4, False), (1023, True)):
+        precision = "bf16" if bf16 else "f32"
+        cfg = testbed_config(end_epoch=150, warmup=30, steps=2, batch=4, M=8,
+                             seed=seed, out_dir=f"{out}/{precision}_{seed}")
+        with bf16_convolutions() if bf16 else contextlib.nullcontext():
+            res = run_proof(cfg, TESTBED_SPACE, tail=10, device="cuda")
+        values = thresholds(res)
+        ok = met(values)
+        runs.append({"seed": seed, "convolutions": precision, **values,
+                     "met": ok, **{k: res[k] for k in (
+                         "converged_op", "landscape_op", "first", "tail_mean",
+                         "learned", "random", "reward_series")}})
+        print(f"[seed spread] seed {seed}, convolutions {precision}: "
+              + ", ".join(f"{k} {values[k]:.4f} "
+                          f"({'met' if ok[k] else 'missed'}: {op} {v})"
+                          for k, op, v in THRESHOLDS)
+              + f"; converged {res['converged_op']}, landscape argmax "
+              f"{res['landscape_op']}", flush=True)
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "seed_spread.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    return runs
 
 def main(argv=None):
     import argparse

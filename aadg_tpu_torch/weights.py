@@ -8,8 +8,12 @@ out) kernel to (out, in/g, kh, kw) and a depthwise (kh, kw, 1, C) to
 (out, in, kh, kw), the layout ``models/zoo/backbones.py::DeconvModule``
 keeps; Dense (in, out) -> (out, in)), ``scale`` -> ``weight``,
 ``bias`` -> ``bias``, and the batch statistics ``mean``/``var`` ->
-``running_mean``/``running_var``. Applies to the segmentation model and the
-discriminator; the controller's plain parameter dict has its own map.
+``running_mean``/``running_var``. The zoo's own leaves keep their names:
+the attention scales ``gamma``, ``pam_gamma``, ``cam_gamma``, EncHead's
+``codewords`` and its codeword ``scale`` (told from a norm's by its
+sibling ``codewords``), and EMAHead's running ``bases``. Applies to the
+segmentation model and the discriminator; the controller's plain
+parameter dict has its own map.
 """
 
 from __future__ import annotations
@@ -20,7 +24,17 @@ import numpy as np
 import torch
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-         "mean": "running_mean", "var": "running_var"}
+         "mean": "running_mean", "var": "running_var",
+         **{k: k for k in ("gamma", "pam_gamma", "cam_gamma", "codewords",
+                           "bases")}}
+
+
+def leaf_name(name: str, siblings) -> str:
+    """The state_dict name of flax leaf ``name`` beside ``siblings`` (the
+    names in its module's collection)."""
+    if name == "scale" and "codewords" in siblings:
+        return "scale"
+    return _LEAF[name]
 
 
 def _walk(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor]):
@@ -31,7 +45,9 @@ def _walk(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor]):
         arr = np.asarray(value, dtype=np.float32)
         if name == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        out[prefix + _LEAF[name]] = torch.from_numpy(np.ascontiguousarray(arr))
+        # (ascontiguousarray makes a 0-d array 1-d; the scalars stay 0-d)
+        out[prefix + leaf_name(name, tree)] = torch.from_numpy(
+            np.ascontiguousarray(arr).reshape(arr.shape))
 
 
 def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

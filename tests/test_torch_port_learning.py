@@ -14,7 +14,9 @@ that this file also runs where JAX is not installed):
   per domain, three constant policies, two batches;
 - the whole harness (search, trajectory, final landscape, learned against
   random) runs on a 3-epoch testbed and gives finite numbers, and its
-  probes leave the state they measure as it was.
+  probes leave the state they measure as it was;
+- ``thresholds`` and ``met`` (what ``seed_spread`` and ``chip_smoke.py``
+  print) read a proof's result as tests/test_learning.py's asserts do.
 
 ``gpu`` tests (skip without a card): the 4-op proof and the full-breadth
 proof at the JAX tests' recipes (``tests/test_learning.py``: 150 epochs,
@@ -171,6 +173,26 @@ def test_harness_runs_on_a_short_testbed(tmp_path):
     assert all(math.isfinite(v) for v in vals)
     assert len(res["rounds"]["learned"]) == 3
 
+
+
+@pytest.mark.parametrize("scale", [0.9, 1.1])
+def test_thresholds_read_a_proof_as_the_jax_test(scale):
+    rng = np.random.default_rng(3)
+    series = list(rng.uniform(0.5, 1.5, 120))
+    first = list(rng.dirichlet(np.ones(4)) * scale * 0.6)
+    tail = list(rng.dirichlet(np.ones(4)) * scale * 0.9)
+    res = {"reward_series": series, "first": first, "tail_mean": tail,
+           "learned": 1.2 * scale, "random": 1.0}
+    third = len(series) // 3
+    early, late = np.mean(series[:third]), np.mean(series[-third:])
+    got = pl.thresholds(res)
+    np.testing.assert_allclose(
+        [got[k] for k, _, _ in pl.THRESHOLDS],
+        [late / early, max(first), max(tail), 1.2 * scale], rtol=1e-12)
+    assert pl.met(got) == {
+        "late_early": late > 1.15 * early, "first_max": max(first) < 0.30,
+        "tail_max": max(tail) > 0.45,
+        "learned_random": res["learned"] > 1.2 * res["random"]}
 
 # -- on the card --------------------------------------------------------------
 

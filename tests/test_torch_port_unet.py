@@ -143,7 +143,8 @@ def test_entities_take_model_from_factory(cfg, opts, model, classes, feat):
     assert logits.shape == (1, 32, 32, classes) and f.shape == (1, feat)
 
 
-@pytest.mark.parametrize("opts", [["MODEL.NAME", "upernet"],
+@pytest.mark.parametrize("opts", [["MODEL.NAME", "upernet",
+                                   "MODEL.BACKBONE", "resnest50"],
                                   ["MODEL.BACKBONE", "resnet50"]])
 def test_unported_models_raise(opts):
     cfg = load_config(RVS_FIXTURE if opts[1] == "upernet"

@@ -18,12 +18,16 @@ operations alone, slower than the one program).
   train (the port applying the dropout masks the JAX module drew) and
   eval, within rtol 1e-4 and atol 1e-4 of the output's largest magnitude,
   and the updated running statistics likewise;
-- for the five configured segmentors ``from_flax`` maps every parameter
-  and BatchNorm statistic of the flax tree onto the port's state_dict
-  and ``to_flax`` maps it back, with no leaf left over on either side;
-- the builder: feature widths equal JAX's ``channel_parser``, and every
-  unported zoo name raises ``NotImplementedError`` citing ROADMAP queue 1,
-  item 7, step 2.
+- for the five configured segmentors, every architecture over
+  ResNetV1c-50 and the FCN over every other ported backbone,
+  ``from_flax`` maps every parameter and BatchNorm statistic (and
+  EMAHead's bases) of the flax tree onto the port's state_dict and
+  ``to_flax`` maps it back, with no leaf left over on either side;
+- the builder: pooled-feature widths equal JAX's segmentors' (the
+  backbone's ``channel_parser``, or the FPN's for ``sem_fpn`` and
+  ``pointrend``), the draws hold one mask per dropout, and the backbones
+  still to port (ResNeSt, FastSCNN, CGNet) raise ``NotImplementedError``
+  citing ROADMAP queue 1, item 7, step 3.
 """
 
 import math
@@ -36,6 +40,8 @@ import torch
 from flax import linen as fnn
 
 from aadg_tpu import models as jmodels
+from aadg_tpu.config import load_config as jax_load_config
+from aadg_tpu.engine import state as jstate
 from aadg_tpu.models.zoo import attention_heads as jah
 from aadg_tpu.models.zoo import backbones as jbb
 from aadg_tpu.models.zoo import builder as jbuilder
@@ -268,9 +274,17 @@ def test_train_forward_needs_masks():
 
 # -- segmentors: weight maps and the builder ---------------------------------
 
-CONFIGS = [("pspnet", "resnet50_v1c", 2), ("lraspp", "mobilenet_v3_large", 2),
-           ("lraspp", "mobilenet_v3_small", 2), ("ocrnet", "hrnet_w18", 1),
-           ("fcn", "unet_s5_d16", 1)]
+# the configured segmentors, every architecture over ResNetV1c-50, and the
+# FCN over every other ported backbone
+CONFIGS = ([("pspnet", "resnet50_v1c", 2),
+            ("lraspp", "mobilenet_v3_large", 2),
+            ("lraspp", "mobilenet_v3_small", 2), ("ocrnet", "hrnet_w18", 1),
+            ("fcn", "unet_s5_d16", 1)]
+           + [(a, "resnet50_v1c", 2) for a in tbuilder.ZOO_ARCHS
+              if a != "pspnet"]
+           + [("fcn", b, 1) for b in ("resnet101_v1c", "resnext50",
+                                      "resnext101", "hrnet_w32",
+                                      "hrnet_w48")])
 
 
 @pytest.mark.parametrize("arch,backbone,classes", CONFIGS)
@@ -280,8 +294,10 @@ def test_weight_maps_cover_every_zoo_leaf(arch, backbone, classes):
                                 train=False)
     with torch.device("meta"):   # shapes only: the weights come from sd
         tmodel, tch = tbuilder.build_segmentor(arch, backbone, classes)
-    assert tch == jch == tmodels.channel_parser(backbone) \
-        == jmodels.channel_parser(backbone)
+    assert tch == jch == tbuilder.feature_dim(arch, backbone)
+    if arch not in ("sem_fpn", "pointrend"):
+        assert tch == tmodels.channel_parser(backbone) \
+            == jmodels.channel_parser(backbone)
     sd = from_flax(variables)
     own = tmodel.state_dict()
     assert sorted(sd) == sorted(own)
@@ -294,18 +310,41 @@ def test_weight_maps_cover_every_zoo_leaf(arch, backbone, classes):
 
 
 @pytest.mark.parametrize("opts", [
-    ["MODEL.NAME", "upernet", "MODEL.BACKBONE", "resnet50_v1c"],
-    ["MODEL.NAME", "deeplabv3", "MODEL.BACKBONE", "resnet50_v1c"],
+    ["MODEL.NAME", "upernet", "MODEL.BACKBONE", "resnest101"],
+    ["MODEL.NAME", "deeplabv3", "MODEL.BACKBONE", "cgnet"],
     ["MODEL.NAME", "fcn", "MODEL.BACKBONE", "resnest50"],
-    ["MODEL.NAME", "pspnet", "MODEL.BACKBONE", "hrnet_w32"]])
+    ["MODEL.NAME", "pspnet", "MODEL.BACKBONE", "fast_scnn"]])
 def test_unported_zoo_names_raise(opts):
     cfg = load_config("experiments/zoo/pspnet_r50_optic.yaml",
                       ["DATASET.NAME", "synthetic_optic", *opts])
     for fn in (lambda: tmodels.build_model(cfg, 2),
                lambda: tstate.build_entities(cfg, "search", device="cpu")):
         with pytest.raises(NotImplementedError,
-                           match="queue 1, item 7, step 2"):
+                           match="queue 1, item 7, step 3"):
             fn()
+
+
+@pytest.mark.parametrize("arch", ["sem_fpn", "pointrend", "annnet",
+                                  "fast_scnn"])
+def test_entities_take_the_segmentors_feature_and_dropouts(arch):
+    """The discriminator reads the segmentor's pooled width (the FPN's 256
+    for sem_fpn and pointrend, as JAX's ``model.feature_dim``), and the
+    draws hold one mask per dropout of the heads' train forward (ANN's
+    two)."""
+    opts = ["DATASET.NAME", "synthetic_optic", "TPU.CROP_SIZE", "32",
+            "MODEL.NAME", arch]
+    jent = jstate.build_entities(
+        jax_load_config("experiments/zoo/pspnet_r50_optic.yaml", opts),
+        "search")
+    ent = tstate.build_entities(
+        load_config("experiments/zoo/pspnet_r50_optic.yaml", opts),
+        "search", device="cpu")
+    assert ent.feature_dim == jent.feature_dim
+    masks = ent.draw_dropout(2, torch.Generator().manual_seed(0))
+    shapes = [tuple(m.shape) for m in masks]
+    assert shapes == {"annnet": [(2, 4, 4, 2048), (2, 4, 4, 512)],
+                      "fast_scnn": [(2, 4, 4, 128)]}.get(
+        arch, [(2, 8, 8, 128)])
 
 
 @pytest.mark.parametrize("cfg,data,feat", [

@@ -3,14 +3,17 @@ against the JAX package's (``aadg_tpu/models/zoo/backbones.py``), f32 on
 the CPU, with weights and inputs drawn with numpy from a seed
 (``test_torch_port_zoo.numpy_variables``) and the JAX modules jitted.
 
-Each of the five backbones (ResNetV1c-50, HRNet-W18, MobileNetV3 large and
-small, UNet-S5-D16) runs at full width on 2 images of 64 x 64 (HRNet-W18
-cut to one exchange unit per stage and 2 blocks per branch, which keeps
-every branch count and fusion), in train mode (batch statistics, and the
+Each backbone (ResNetV1c-50, ResNeXt-50 (32x4d), HRNet-W18/W32/W48,
+MobileNetV3 large and small, UNet-S5-D16) runs at full width on 2 images
+of 64 x 64 (the HRNets cut to one exchange unit per stage and 2 blocks
+per branch, which keeps every branch count and fusion), in train mode (batch statistics, and the
 updated running statistics) and in eval mode: every output within rtol
 1e-4 and atol 1e-4 of its largest magnitude, 2e-4 in train mode, where
 BatchNorm over 2 small images amplifies f32 rounding through ResNet-50's
-16 blocks (measured 1.2e-4). ``DeconvModule`` (not on the configured UNet,
+16 blocks (measured 1.2e-4). The 101-layer ResNetV1c and ResNeXt differ
+from the 50-layer ones only in their third stage's block count; their
+trees are held to JAX's in ``test_torch_port_zoo.py``'s weight maps.
+``DeconvModule`` (not on the configured UNet,
 which upsamples with ``InterpConv``) within 1e-4; ``weights.from_flax``
 maps flax's unflipped ConvTranspose kernel.
 """
@@ -31,8 +34,13 @@ from torch_port_helpers import few_torch_threads  # noqa: F401
 
 BACKBONES = {
     "resnet50_v1c": (lambda: jbb.ResNetV1c(50), lambda: tbb.ResNetV1c(50)),
+    "resnext50": (lambda: jbb.ResNeXt(50), lambda: tbb.ResNeXt(50)),
     "hrnet_w18": (lambda: jbb.HRNet(18, (1, 1, 1), 2),
                   lambda: tbb.HRNet(18, (1, 1, 1), 2)),
+    "hrnet_w32": (lambda: jbb.HRNet(32, (1, 1, 1), 2),
+                  lambda: tbb.HRNet(32, (1, 1, 1), 2)),
+    "hrnet_w48": (lambda: jbb.HRNet(48, (1, 1, 1), 2),
+                  lambda: tbb.HRNet(48, (1, 1, 1), 2)),
     "mobilenet_v3_large": (lambda: jbb.MobileNetV3("large"),
                            lambda: tbb.MobileNetV3("large")),
     "mobilenet_v3_small": (lambda: jbb.MobileNetV3("small"),

@@ -5,7 +5,12 @@ B=1 per domain, M=2:
 - ``experiments/zoo/lraspp_mnv3_optic.yaml`` (LR-ASPP / MobileNetV3-large)
   on synthetic_optic;
 - ``experiments/zoo/ocrnet_hr18_rvs.yaml`` (OCRNet / HRNet-W18) on
-  synthetic_rvs from 128 x 128 pools.
+  synthetic_rvs from 128 x 128 pools;
+- ``experiments/zoo/pspnet_r50_optic.yaml`` with ``MODEL.NAME pointrend``
+  (its validation and test maps run the subdivision refine) and with
+  ``MODEL.NAME emanet`` (the EMA bases are saved in the checkpoint), each
+  over ``MODEL.BACKBONE mobilenet_v3_small`` to keep the CPU run short,
+  on synthetic_optic.
 
 Each runs search (one warmup and one search epoch of two steps), train
 with ``TPU.AUTOAUGMENT`` on the searched controller, and test (``seg``
@@ -37,6 +42,15 @@ CONFIGS = {
                ["DATASET.NAME", "synthetic_rvs", "TPU.SYNTHETIC_SIZE", "128"],
                ["dsc", "acc", "aucroc", "sp", "se"],
                "cascade_heads_0.object_attention.key_project_1.conv.weight"),
+    "pointrend": ("experiments/zoo/pspnet_r50_optic.yaml",
+                  ["DATASET.NAME", "synthetic_optic", "MODEL.NAME",
+                   "pointrend", "MODEL.BACKBONE", "mobilenet_v3_small"],
+                  ["avg_dsc", "cup_dsc", "disc_dsc"],
+                  "point_head.fc_seg.weight"),
+    "emanet": ("experiments/zoo/pspnet_r50_optic.yaml",
+               ["DATASET.NAME", "synthetic_optic", "MODEL.NAME", "emanet",
+                "MODEL.BACKBONE", "mobilenet_v3_small"],
+               ["avg_dsc", "cup_dsc", "disc_dsc"], "decode_head.bases"),
 }
 
 

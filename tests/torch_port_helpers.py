@@ -23,7 +23,7 @@ from aadg_tpu_torch.config import load_config
 from aadg_tpu_torch.data.datasets import SyntheticDataset
 from aadg_tpu_torch.data.transforms import ScaleCropDraw
 from aadg_tpu_torch.engine import state as tstate
-from aadg_tpu_torch.weights import _LEAF, from_flax
+from aadg_tpu_torch.weights import from_flax, leaf_name
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -292,7 +292,8 @@ def to_flax(state_dict, template):
             if isinstance(value, Mapping):
                 out[name] = walk(value, f"{prefix}{name}.")
                 continue
-            arr = state_dict[prefix + _LEAF[name]].detach().cpu().numpy()
+            key = prefix + leaf_name(name, tree)
+            arr = state_dict[key].detach().cpu().numpy()
             if name == "kernel":
                 arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
             assert arr.shape == np.shape(value), (prefix, name)
