@@ -190,7 +190,8 @@ def _search(cfg, device, logger, out_dir, writer):
 
     ent = build_entities(cfg, "search", steps_per_epoch=steps, device=device,
                          logger=logger)
-    sd, cs = init_state(ent, int(cfg.SEED), str(cfg.TPU.PRETRAINED))
+    sd, cs = init_state(ent, int(cfg.SEED), str(cfg.TPU.PRETRAINED),
+                        logger)
     gen = torch.Generator(device).manual_seed(int(cfg.SEED))
     M = int(cfg.CONTROLLER.M)
     h, w = store.images.shape[2], store.images.shape[3]

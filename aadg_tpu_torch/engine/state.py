@@ -25,6 +25,7 @@ from ..models.controller import Controller, ControllerSpec, spec_from_config
 from ..models.discriminator import (MomentumFeatureDiscriminator,
                                     build_discriminator)
 from ..ops import augment as aug_mod
+from ..utils.pretrained import load_pretrained
 
 
 class ScheduledAdam:
@@ -205,21 +206,23 @@ def build_entities(cfg: CfgNode, mode: str = "search",
         draw_dropout=dropout_drawer(cfg, crop))
 
 
-def init_state(ent: Entities, seed: int, pretrained: str = ""):
+def init_state(ent: Entities, seed: int, pretrained: str = "",
+               logger=None):
     """Seeded modules on ``ent.device`` and their optimizers. Returns
     (SegDisState, CtrlState). The global RNG is left as it was.
-    ``pretrained`` (``TPU.PRETRAINED``, the encoder weights the JAX
-    ``init_state`` grafts) raises: the loader is not ported yet."""
-    if pretrained:
-        raise NotImplementedError(
-            f"TPU.PRETRAINED {pretrained!r}: loading pretrained encoder "
-            "weights is not ported yet (ROADMAP queue 1, item 12)")
+    ``pretrained`` (``TPU.PRETRAINED``): converted weights
+    (``python -m aadg_tpu_torch.convert_weights``) copied into the seeded
+    model before it moves to the device, as the JAX ``init_state`` grafts
+    them into its initialized parameters; the seeded draws are the same
+    with and without them."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = ent.make_model()
         disc = build_discriminator(ent.dis_name, ent.n_domains,
                                    ent.feature_dim)
         controller = Controller(ent.ctrl_spec)
+    if pretrained:
+        load_pretrained(model, pretrained, logger)
     model.to(ent.device)
     if ent.device.type == "cuda":
         model.to(memory_format=torch.channels_last)

@@ -48,7 +48,8 @@ def _train(cfg, device, logger, out_dir, writer):
     batch_size = int(cfg.TRAIN.BATCH_SIZE)
     ent = build_entities(cfg, "train", steps_per_epoch=steps, device=device,
                          logger=logger)
-    sd, cs = init_state(ent, int(cfg.SEED), str(cfg.TPU.PRETRAINED))
+    sd, cs = init_state(ent, int(cfg.SEED), str(cfg.TPU.PRETRAINED),
+                        logger)
     gen = torch.Generator(device).manual_seed(int(cfg.SEED))
     h, w = store.images.shape[2], store.images.shape[3]
     n0 = batch_size * store.n_domains

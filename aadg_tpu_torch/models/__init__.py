@@ -39,8 +39,8 @@ def _variant(cfg) -> str:
 
 
 def _zoo(cfg) -> bool:
-    """True for a zoo name; raises for a zoo backbone that is not
-    ported."""
+    """True for a zoo name; raises for a zoo backbone the builder does
+    not know."""
     if cfg.MODEL.NAME not in zoo_builder.ZOO_ARCHS:
         return False
     zoo_builder.check(cfg.MODEL.NAME, cfg.MODEL.BACKBONE)
@@ -52,11 +52,11 @@ def model_class(cfg) -> type:
     name = cfg.MODEL.NAME
     if name not in _MODELS:
         raise NotImplementedError(
-            f"model {name} is not ported yet (ROADMAP queue 1, item 7)")
+            f"model {name} is not ported yet (ROADMAP queue 1, item 7c)")
     if name == "deeplabv3+" and cfg.MODEL.BACKBONE != "mobilenet_v2":
         raise NotImplementedError(
             f"backbone {cfg.MODEL.BACKBONE} is not ported yet (ROADMAP "
-            "queue 1, item 7)")
+            "queue 1, item 7c)")
     return _MODELS[name]
 
 

@@ -1,14 +1,21 @@
-"""Zoo backbones (port of ``aadg_tpu/models/zoo/backbones.py`` except
-ResNeSt, FastSCNN and CGNet), NCHW inside. Each returns a list of features
-and names its widths in ``out_channels``:
+"""Zoo backbones (port of ``aadg_tpu/models/zoo/backbones.py``), NCHW
+inside. Each returns a list of features and names its widths in
+``out_channels``:
 
 - ``ResNetV1c`` (50, 101): deep 3x3 stem, dilations (1, 1, 2, 4), output
   stride 8; four stages. ``ResNeXt`` is the same network with grouped
   3x3 convolutions (32 groups of 4 channels per 64 planes).
+- ``ResNeSt`` (50, 101): the same stages of split-attention bottlenecks
+  (radix 2) with avg-down shortcuts.
 - ``HRNet`` (W18, W32, W48): four parallel branches at strides 4/8/16/32
   with full cross-resolution fusion.
 - ``MobileNetV3`` ('large'/'small'): inverted residuals with
   squeeze-excite and hard-swish; the three taps the LRASPP head reads.
+- ``FastSCNN``: learning-to-downsample, a global feature extractor with a
+  pyramid pooling module, and feature fusion; ``[higher (1/8), lower
+  (1/32), fusion (1/8)]``.
+- ``CGNet`` (M3N21): context-guided blocks with per-channel PReLUs and
+  input injection; three stages at strides 2, 4 and 8.
 - ``UNetBackbone`` (S5-D16): mmseg's configurable UNet; the bottleneck
   and the four decoder outputs, coarse to fine.
 """
@@ -23,7 +30,8 @@ import torch.nn.functional as F
 
 from ..mobilenetv2 import BatchNorm, conv
 from ..segformer import dense
-from .layers import ConvModule, resize
+from .layers import (ConvModule, DepthwiseSeparableConvModule,
+                     adaptive_avg_pool, resize)
 
 
 class Bottleneck(nn.Module):
@@ -58,21 +66,20 @@ class Bottleneck(nn.Module):
         return F.relu(x + y)
 
 
-class ResNetV1c(nn.Module):
-    """mmseg's default encoder: stem of three 3x3 convs (the first with
-    stride 2) and a 3x3 max pool, then stages of (3, 4, 6, 3) bottlenecks
-    with strides (1, 2, 1, 1) and dilations (1, 1, 2, 4); (3, 4, 23, 3)
-    bottlenecks at depth 101."""
+class _ResStages(nn.Module):
+    """A deep stem (three 3x3 convs of widths ``stem``, the first with
+    stride 2) and a 3x3 max pool, then four stages of ``block(in, planes,
+    stride, dilation)`` bottlenecks, (3, 4, 6, 3) at depth 50 and (3, 4,
+    23, 3) at 101, at planes 64 x 2^s; returns each stage's output."""
 
     blocks = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
-    def __init__(self, depth: int = 50, groups: int = 1,
-                 base_width: int = 64,
-                 dilations: Tuple[int, ...] = (1, 1, 2, 4),
-                 strides: Tuple[int, ...] = (1, 2, 1, 1)):
+    def __init__(self, depth: int, stem: Tuple[int, ...],
+                 dilations: Tuple[int, ...], strides: Tuple[int, ...],
+                 block):
         super().__init__()
         ch = 3
-        for i, out in enumerate((32, 32, 64)):
+        for i, out in enumerate(stem):
             self.add_module(f"stem{i}", conv(ch, out, 3, 2 if i == 0 else 1,
                                              padding=1))
             self.add_module(f"stem_bn{i}", BatchNorm(out))
@@ -82,9 +89,8 @@ class ResNetV1c(nn.Module):
         for s, n in enumerate(self.stage_blocks):
             planes = 64 * 2 ** s
             for b in range(n):
-                self.add_module(f"layer{s + 1}_{b}", Bottleneck(
-                    ch, planes, strides[s] if b == 0 else 1, dilations[s],
-                    groups, base_width))
+                self.add_module(f"layer{s + 1}_{b}", block(
+                    ch, planes, strides[s] if b == 0 else 1, dilations[s]))
                 ch = planes * 4
             self.out_channels.append(ch)
 
@@ -101,10 +107,101 @@ class ResNetV1c(nn.Module):
         return feats
 
 
+class ResNetV1c(_ResStages):
+    """mmseg's default encoder: a (32, 32, 64) stem, then stages of
+    bottlenecks with strides (1, 2, 1, 1) and dilations (1, 1, 2, 4)."""
+
+    def __init__(self, depth: int = 50, groups: int = 1,
+                 base_width: int = 64,
+                 dilations: Tuple[int, ...] = (1, 1, 2, 4),
+                 strides: Tuple[int, ...] = (1, 2, 1, 1)):
+        super().__init__(depth, (32, 32, 64), dilations, strides,
+                         lambda ch, planes, s, d: Bottleneck(
+                             ch, planes, s, d, groups, base_width))
+
+
 def ResNeXt(depth: int = 50, groups: int = 32,
             base_width: int = 4) -> ResNetV1c:
     """ResNeXt (32x4d): ResNetV1c with grouped bottlenecks."""
     return ResNetV1c(depth, groups, base_width)
+
+
+class SplitAttentionConv(nn.Module):
+    """Split attention (ResNeSt's SplAtConv2d): a 3x3 conv over
+    ``groups * radix`` groups to ``radix`` splits of ``channels``, BatchNorm
+    and ReLU; the splits' sum pooled globally, ``fc1`` -> BatchNorm -> ReLU
+    -> ``fc2``; then a softmax over the radix (the JAX layout: ``fc2``'s
+    output read as (radix, groups, channels / groups), which equals mmcv's
+    rSoftMax only at one group) weights the splits' sum."""
+
+    def __init__(self, in_ch: int, channels: int, radix: int = 2,
+                 groups: int = 1, dilation: int = 1):
+        super().__init__()
+        self.radix, self.groups, self.channels = radix, groups, channels
+        self.conv = conv(in_ch, channels * radix, 3, groups=groups * radix,
+                         dilation=dilation, padding=dilation)
+        self.bn0 = BatchNorm(channels * radix)
+        inter = max(channels * radix // 4, 32)
+        self.fc1 = dense(channels, inter)
+        self.bn1 = BatchNorm(inter)
+        self.fc2 = dense(inter, channels * radix)
+
+    def forward(self, x):
+        r, g, c = self.radix, self.groups, self.channels
+        y = F.relu(self.bn0(self.conv(x)))
+        b, _, h, w = y.shape
+        splits = y.view(b, r, c, h, w)          # radix-major channels
+        gap = splits.sum(1).mean(dim=(2, 3))
+        a = F.relu(self.bn1(self.fc1(gap)))
+        a = torch.softmax(self.fc2(a).view(b, r, g, c // g), dim=1)
+        return (splits * a.reshape(b, r, c, 1, 1)).sum(1)
+
+
+class ResNeStBottleneck(nn.Module):
+    """1x1, split-attention 3x3 (carrying the dilation), a 3x3 average pool
+    with the stride after it (avd), 1x1 to ``4 planes``; the shortcut
+    average-pools by the stride (flooring) before its 1x1 projection."""
+
+    def __init__(self, in_ch: int, planes: int, stride: int = 1,
+                 dilation: int = 1, radix: int = 2):
+        super().__init__()
+        out_ch = planes * 4
+        self.stride = stride
+        self.conv1 = conv(in_ch, planes, 1)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = SplitAttentionConv(planes, planes, radix,
+                                        dilation=dilation)
+        self.conv3 = conv(planes, out_ch, 1)
+        self.bn3 = BatchNorm(out_ch)
+        self.down = in_ch != out_ch or stride != 1
+        if self.down:
+            self.down_conv = conv(in_ch, out_ch, 1)
+            self.down_bn = BatchNorm(out_ch)
+
+    def forward(self, x):
+        y = self.conv2(F.relu(self.bn1(self.conv1(x))))
+        if self.stride > 1:
+            y = F.avg_pool2d(y, 3, self.stride, 1)
+        y = self.bn3(self.conv3(y))
+        if self.down:
+            if self.stride != 1:
+                x = F.avg_pool2d(x, self.stride, self.stride)
+            x = self.down_bn(self.down_conv(x))
+        return F.relu(x + y)
+
+
+class ResNeSt(_ResStages):
+    """ResNeSt: ResNetV1c's stages of split-attention bottlenecks, with a
+    (32, 32, 64) stem at depth 50 and (64, 64, 128) at 101."""
+
+    def __init__(self, depth: int = 50, radix: int = 2,
+                 dilations: Tuple[int, ...] = (1, 1, 2, 4),
+                 strides: Tuple[int, ...] = (1, 2, 1, 1)):
+        super().__init__(depth,
+                         (32, 32, 64) if depth == 50 else (64, 64, 128),
+                         dilations, strides,
+                         lambda ch, planes, s, d: ResNeStBottleneck(
+                             ch, planes, s, d, radix))
 
 
 class BasicBlock(nn.Module):
@@ -329,6 +426,218 @@ class MobileNetV3(nn.Module):
             x = getattr(self, f"block{i}")(x)
             if i in self.taps:
                 feats.append(x)
+        return feats
+
+
+class InvertedResidualV2(nn.Module):
+    """Fast-SCNN's MobileNetV2 bottleneck: 1x1 expand (x ``expand``),
+    depthwise 3x3 with the stride, 1x1 project, ReLU6 after the first
+    two; residual at stride 1 with equal widths."""
+
+    def __init__(self, in_ch: int, out: int, stride: int = 1,
+                 expand: int = 6):
+        super().__init__()
+        hidden = in_ch * expand
+        self.expand = conv(in_ch, hidden, 1)
+        self.expand_bn = BatchNorm(hidden)
+        self.dw = conv(hidden, hidden, 3, stride, groups=hidden, padding=1)
+        self.dw_bn = BatchNorm(hidden)
+        self.project = conv(hidden, out, 1)
+        self.project_bn = BatchNorm(out)
+        self.residual = stride == 1 and in_ch == out
+
+    def forward(self, x):
+        y = F.relu6(self.expand_bn(self.expand(x)))
+        y = F.relu6(self.dw_bn(self.dw(y)))
+        y = self.project_bn(self.project(y))
+        return x + y if self.residual else y
+
+
+class FastSCNN(nn.Module):
+    """Fast-SCNN. Learning to downsample: a stride-2 3x3 ConvModule with
+    mmcv's default padding 0, then two stride-2 depthwise-separable
+    modules (``higher``, 1/8). Global feature extractor: three stages of
+    three inverted residuals, a pyramid pooling module of
+    ``global_block_channels[-1] // 4``-wide 1x1 ConvModules over adaptive
+    pools, and a 1x1 fuse (``lower``, 1/32). Feature fusion: ``lower``
+    resized to ``higher``, a 1x1 ConvModule and an activation-free 1x1,
+    added to an activation-free 1x1 of ``higher``, ReLU (``fusion``).
+    Returns ``[higher, lower, fusion]``."""
+
+    def __init__(self, downsample_dw_channels: Tuple[int, int] = (32, 48),
+                 higher_in_channels: int = 64, lower_in_channels: int = 128,
+                 global_block_channels: Tuple[int, ...] = (64, 96, 128),
+                 global_block_strides: Tuple[int, ...] = (2, 2, 1),
+                 fusion_out_channels: int = 128,
+                 pool_scales: Tuple[int, ...] = (1, 2, 3, 6)):
+        super().__init__()
+        dw, higher = downsample_dw_channels, higher_in_channels
+        fusion = fusion_out_channels
+        self.ltd_conv = ConvModule(3, dw[0], 3, stride=2, padding=0)
+        self.ltd_ds1 = DepthwiseSeparableConvModule(dw[0], dw[1], 3, 2)
+        self.ltd_ds2 = DepthwiseSeparableConvModule(dw[1], higher, 3, 2)
+        ch = higher
+        for s, (out, st) in enumerate(zip(global_block_channels,
+                                          global_block_strides)):
+            for b in range(3):
+                self.add_module(f"gfe_{s}_{b}", InvertedResidualV2(
+                    ch, out, st if b == 0 else 1))
+                ch = out
+        self.pool_scales = tuple(pool_scales)
+        pool_ch = global_block_channels[-1] // 4
+        for i in range(len(pool_scales)):
+            self.add_module(f"ppm_{i}", ConvModule(ch, pool_ch, 1))
+        self.gfe_out = ConvModule(ch + len(pool_scales) * pool_ch,
+                                  lower_in_channels, 1)
+        self.ffm_dwconv = ConvModule(lower_in_channels, fusion, 1)
+        self.ffm_lower = ConvModule(fusion, fusion, 1, act=None)
+        self.ffm_higher = ConvModule(higher, fusion, 1, act=None)
+        self.n_stages = len(global_block_channels)
+        self.out_channels = [higher, lower_in_channels, fusion]
+
+    def forward(self, x) -> List[torch.Tensor]:
+        higher = self.ltd_ds2(self.ltd_ds1(self.ltd_conv(x)))
+        y = higher
+        for s in range(self.n_stages):
+            for b in range(3):
+                y = getattr(self, f"gfe_{s}_{b}")(y)
+        size = y.shape[2:]
+        pools = [y] + [resize(getattr(self, f"ppm_{i}")(
+            adaptive_avg_pool(y, sc)), size)
+            for i, sc in enumerate(self.pool_scales)]
+        lower = self.gfe_out(torch.cat(pools, dim=1))
+        up = self.ffm_lower(self.ffm_dwconv(resize(lower, higher.shape[2:])))
+        fusion = F.relu(self.ffm_higher(higher) + up)
+        return [higher, lower, fusion]
+
+
+class ChannelPReLU(nn.Module):
+    """PReLU with one learnable negative slope per channel (init 0.25),
+    kept under flax's leaf name ``alpha``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((channels,), 0.25))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.alpha[:, None, None] * x)
+
+
+class GlobalContextExtractor(nn.Module):
+    """Squeeze-excite gate: global mean, Dense to ``channels //
+    reduction``, ReLU, Dense back, sigmoid."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        mid = max(channels // reduction, 1)
+        self.fc1 = dense(channels, mid)
+        self.fc2 = dense(mid, channels)
+
+    def forward(self, x):
+        s = F.relu(self.fc1(torch.mean(x, dim=(2, 3))))
+        return x * torch.sigmoid(self.fc2(s))[:, :, None, None]
+
+
+class ContextGuidedBlock(nn.Module):
+    """CGNet's block: a 1x1 conv (a stride-2 3x3 when downsampling) to
+    ``n`` channels, BatchNorm, PReLU; a local depthwise 3x3 and a
+    surrounding dilated depthwise 3x3, concatenated, BatchNorm, PReLU; a
+    1x1 reduce when downsampling; the global-context gate; a residual when
+    not downsampling and the widths agree."""
+
+    def __init__(self, in_ch: int, out_channels: int, dilation: int = 2,
+                 reduction: int = 16, downsample: bool = False):
+        super().__init__()
+        n = out_channels if downsample else out_channels // 2
+        self.downsample = downsample
+        self.conv1x1 = conv(in_ch, n, 3 if downsample else 1,
+                            2 if downsample else 1,
+                            padding=1 if downsample else 0)
+        self.bn1 = BatchNorm(n)
+        self.prelu1 = ChannelPReLU(n)
+        self.floc = conv(n, n, 3, groups=n, padding=1)
+        self.fsur = conv(n, n, 3, groups=n, dilation=dilation,
+                         padding=dilation)
+        self.bn2 = BatchNorm(2 * n)
+        self.prelu2 = ChannelPReLU(2 * n)
+        width = 2 * n
+        if downsample:
+            self.reduce = conv(2 * n, out_channels, 1)
+            width = out_channels
+        self.fglo = GlobalContextExtractor(width, reduction)
+        self.residual = not downsample and in_ch == width
+
+    def forward(self, x):
+        y = self.prelu1(self.bn1(self.conv1x1(x)))
+        joi = torch.cat([self.floc(y), self.fsur(y)], dim=1)
+        joi = self.prelu2(self.bn2(joi))
+        if self.downsample:
+            joi = self.reduce(joi)
+        out = self.fglo(joi)
+        return x + out if self.residual else out
+
+
+class CGNet(nn.Module):
+    """CGNet (M3N21): a stem of three 3x3 convs (the first with stride 2)
+    each with BatchNorm and PReLU, then two stages of context-guided
+    blocks (a downsampling one, then ``num_blocks - 1``). The image is
+    injected by 3x3 stride-2 average pools: once beside the stem's output
+    and twice beside the first stage's. Each stage's output is
+    concatenated (stage 0: [blocks, first block, image at 1/4]; stage 1:
+    [first block, blocks]), then BatchNorm and PReLU. Returns the three
+    concatenations, at strides 2, 4 and 8."""
+
+    def __init__(self, num_channels: Tuple[int, int, int] = (32, 64, 128),
+                 num_blocks: Tuple[int, int] = (3, 21),
+                 dilations: Tuple[int, int] = (2, 4),
+                 reductions: Tuple[int, int] = (8, 16)):
+        super().__init__()
+        c0 = num_channels[0]
+        ch = 3
+        for i in range(3):
+            self.add_module(f"stem{i}", conv(ch, c0, 3, 2 if i == 0 else 1,
+                                             padding=1))
+            self.add_module(f"stem_bn{i}", BatchNorm(c0))
+            self.add_module(f"stem_prelu{i}", ChannelPReLU(c0))
+            ch = c0
+        ch = c0 + 3
+        self.cat_bn0 = BatchNorm(ch)
+        self.cat_prelu0 = ChannelPReLU(ch)
+        self.out_channels = [ch]
+        self.num_blocks = tuple(num_blocks)
+        for stage in range(2):
+            c = num_channels[stage + 1]
+            args = (dilations[stage], reductions[stage])
+            self.add_module(f"stage{stage}_down", ContextGuidedBlock(
+                ch, c, *args, downsample=True))
+            for b in range(num_blocks[stage] - 1):
+                self.add_module(f"stage{stage}_{b}",
+                                ContextGuidedBlock(c, c, *args))
+            ch = 2 * c + (3 if stage == 0 else 0)
+            self.add_module(f"cat_bn{stage + 1}", BatchNorm(ch))
+            self.add_module(f"cat_prelu{stage + 1}", ChannelPReLU(ch))
+            self.out_channels.append(ch)
+
+    def forward(self, x) -> List[torch.Tensor]:
+        down1 = F.avg_pool2d(x, 3, 2, 1)
+        y = x
+        for i in range(3):
+            y = getattr(self, f"stem_prelu{i}")(getattr(
+                self, f"stem_bn{i}")(getattr(self, f"stem{i}")(y)))
+        y = self.cat_prelu0(self.cat_bn0(torch.cat([y, down1], dim=1)))
+        feats = [y]
+        for stage in range(2):
+            z = first = getattr(self, f"stage{stage}_down")(y)
+            for b in range(self.num_blocks[stage] - 1):
+                z = getattr(self, f"stage{stage}_{b}")(z)
+            if stage == 0:
+                z = torch.cat([z, first, F.avg_pool2d(down1, 3, 2, 1)],
+                              dim=1)
+            else:
+                z = torch.cat([first, z], dim=1)
+            y = getattr(self, f"cat_prelu{stage + 1}")(getattr(
+                self, f"cat_bn{stage + 1}")(z))
+            feats.append(y)
         return feats
 
 

@@ -1,9 +1,9 @@
 """``MODEL.NAME``/``MODEL.BACKBONE`` -> zoo segmentor (port of
 ``aadg_tpu/models/zoo/builder.py``): every architecture of ``ZOO_ARCHS``
-over ResNetV1c-50/101, ResNeXt-50/101, HRNet-W18/32/48, MobileNetV3
-large/small and UNet-S5-D16. The ResNeSt, FastSCNN and CGNet backbones
-raise. The zoo is built in f32 and without activation checkpointing, as
-the JAX builder does.
+over every backbone of the JAX builder: ResNetV1c-50/101, ResNeXt-50/101,
+ResNeSt-50/101, HRNet-W18/32/48, MobileNetV3 large/small, Fast-SCNN,
+CGNet and UNet-S5-D16. The zoo is built in f32 and without activation
+checkpointing, as the JAX builder does.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from torch import nn
 
 from . import attention_heads as ah
 from . import heads as hd
-from .backbones import HRNet, MobileNetV3, ResNeXt, ResNetV1c, UNetBackbone
+from .backbones import (CGNet, FastSCNN, HRNet, MobileNetV3, ResNeSt,
+                        ResNeXt, ResNetV1c, UNetBackbone)
 from .necks import FPN
 from .point_head import PointHead
 from .segmentor import (CascadeEncoderDecoder, EncoderDecoder,
@@ -33,15 +34,17 @@ BACKBONES = {
     "resnet101_v1c": (lambda: ResNetV1c(101), 2048),
     "resnext50": (lambda: ResNeXt(50), 2048),
     "resnext101": (lambda: ResNeXt(101), 2048),
+    "resnest50": (lambda: ResNeSt(50), 2048),
+    "resnest101": (lambda: ResNeSt(101), 2048),
     "hrnet_w18": (lambda: HRNet(18), 144),
     "hrnet_w32": (lambda: HRNet(32), 256),
     "hrnet_w48": (lambda: HRNet(48), 384),
     "mobilenet_v3_large": (lambda: MobileNetV3("large"), 160),
     "mobilenet_v3_small": (lambda: MobileNetV3("small"), 96),
+    "fast_scnn": (lambda: FastSCNN(), 128),
+    "cgnet": (lambda: CGNet(), 256),
     "unet_s5_d16": (lambda: UNetBackbone(), 64),
 }
-# backbones of the JAX builder that need blocks not ported yet
-UNPORTED_BACKBONES = ("resnest50", "resnest101", "fast_scnn", "cgnet")
 # archs whose pooled feature is the FPN neck's, not the backbone's
 FPN_WIDTH = 256
 _FPN_ARCHS = ("sem_fpn", "pointrend")
@@ -74,15 +77,8 @@ HEADS = {
 }
 
 
-def _unported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"zoo backbone {name} is not ported yet (ROADMAP queue 1, item 7, "
-        "step 3)")
-
-
 def check(arch: str, backbone: str) -> None:
-    """Raise for a name the builder does not know, or a backbone that is
-    not ported yet."""
+    """Raise for a name the builder does not know."""
     if arch not in ZOO_ARCHS:
         raise KeyError(f"unknown zoo architecture {arch}")
     backbone_channels(backbone)
@@ -90,8 +86,6 @@ def check(arch: str, backbone: str) -> None:
 
 def backbone_channels(name: str) -> int:
     """The width of ``name``'s last feature."""
-    if name in UNPORTED_BACKBONES:
-        raise _unported(name)
     if name not in BACKBONES:
         raise KeyError(f"unknown zoo backbone {name}")
     return BACKBONES[name][1]

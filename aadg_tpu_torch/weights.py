@@ -11,7 +11,8 @@ keeps; Dense (in, out) -> (out, in)), ``scale`` -> ``weight``,
 ``running_mean``/``running_var``. The zoo's own leaves keep their names:
 the attention scales ``gamma``, ``pam_gamma``, ``cam_gamma``, EncHead's
 ``codewords`` and its codeword ``scale`` (told from a norm's by its
-sibling ``codewords``), and EMAHead's running ``bases``. Applies to the
+sibling ``codewords``), EMAHead's running ``bases``, and CGNet's
+per-channel PReLU slopes ``alpha``. Applies to the
 segmentation model and the discriminator; the controller's plain
 parameter dict has its own map.
 """
@@ -26,7 +27,7 @@ import torch
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var",
          **{k: k for k in ("gamma", "pam_gamma", "cam_gamma", "codewords",
-                           "bases")}}
+                           "bases", "alpha")}}
 
 
 def leaf_name(name: str, siblings) -> str:

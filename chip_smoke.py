@@ -42,10 +42,15 @@ synthetic_rvs at 512^2, their heads' classifier dropout drawn in the
 draw phase; deeplabv3plus and pointrend (pspnet_r50_optic.yaml with
 MODEL.NAME deeplabv3plus, mmseg's DeepLabV3+/R50-D8, and MODEL.NAME
 pointrend: FPN, FPNHead and PointHead, whose subdivision refine runs in
-the validation and the seg test) on synthetic_optic at 256^2; all B=8 x 3
-domains x M=6 policies, crop 256, except fcn_unet's search at B=1: at B=2
-its search step fits in memory but cuDNN runs the head's data gradients
-30x slower):
+the validation and the seg test), resnest (the same file with MODEL.NAME
+deeplabv3plus MODEL.BACKBONE resnest101, mmseg's DeepLabV3+/S101-D8, its
+search and train paths starting from a seeded mmcv-named ResNeSt-101
+checkpoint converted by ``python -m aadg_tpu_torch.convert_weights``) and
+fast_scnn (MODEL.NAME fast_scnn over MODEL.BACKBONE fast_scnn) on
+synthetic_optic at 256^2; all B=8 x 3 domains x M=6 policies, crop 256,
+except fcn_unet's search at B=1 (at B=2 its search step fits in memory
+but cuDNN runs the head's data gradients 30x slower) and resnest's at B=5
+(the largest its counted memory lets fit)):
 
 4. reference: one search step on the card (kernels) and on the CPU (plain
    versions) from the same weights, batch and draws at crop 64 in f32
@@ -60,7 +65,9 @@ its search step fits in memory but cuDNN runs the head's data gradients
    per search step, every loss, reward and validation number must be
    finite (the synthetic rvs ROIs hold both classes, so AUROC is defined),
    final_result.json must hold its task's keys in range, and
-   final_controller_state.pt must load;
+   final_controller_state.pt must load; with TPU.PRETRAINED (resnest) the
+   module the file is grafted into must hold the file's weights exactly
+   at step 0 (``starts_from``), in this path and the next;
 6. train path: ``--mode train TPU.AUTOAUGMENT True TEST.MODEL_DIR <search
    run>`` at the same width, two epochs of three steps; K2 and K3 exactly
    L=2 launches per train step, sinkhorn_solve and K1 none, finite losses
@@ -99,9 +106,14 @@ and for segformer also:
 
 then:
 
-12. zoo sweep: every other architecture of the zoo over ResNetV1c-50
+12. pretrained optic search: the optic search path (one warmup and one
+    search epoch) with TPU.PRETRAINED naming a seeded torchvision
+    MobileNetV2 checkpoint converted by the port's CLI; the encoder at
+    step 0 must equal the file;
+13. zoo sweep: every other architecture of the zoo over ResNetV1c-50
     (deeplabv3, upernet, sem_fpn, the attention heads, fast_scnn) and the
-    FCN over ResNetV1c-101, ResNeXt-50/101 and HRNet-W32/48, each on
+    FCN over ResNetV1c-101, ResNeXt-50/101, HRNet-W32/48, ResNeSt-50 and
+    CGNet, each on
     pspnet_r50_optic.yaml at full width on the optic pools: its counted
     costs, a warm-up and two timed search steps at B=8 or the largest B
     that fits (a torch.cuda.OutOfMemoryError of the step lowers B by one,
@@ -111,7 +123,7 @@ then:
 
 and last:
 
-13. learning: the learning proof (``aadg_tpu_torch.prove_learning``) at the
+14. learning: the learning proof (``aadg_tpu_torch.prove_learning``) at the
     recipes of tests/test_learning.py on synthetic_optic_tint: the
     calibration landscape, asserted (Color@1.9 tops it, above 2x
     Color@0.1 and 2x every other op's best), and the 4-op search of 150
@@ -126,9 +138,10 @@ Every path runs with each kernel's launch counter set to 0 just before it
 and read just after; the kernels line gives the counts per path (optic
 ``search``/``train``/``test``, rvs ``rvs_search``/``rvs_train``/
 ``rvs_test``, segformer ``segformer_search``/..., ``pspnet_search``, ...
-``fcn_unet_test``, ``sweep_<arch>_<backbone>``). The per-epoch lines give
-each checkpoint's time in the loop and on its writer thread; ``[time]``
-lines give each phase's seconds, and a line the script's total time.
+``fast_scnn_test``, ``pretrained_search``, ``sweep_<arch>_<backbone>``).
+The per-epoch lines give each checkpoint's time in the loop and on its
+writer thread; ``[time]`` lines give each phase's seconds, and a line the
+script's total time.
 
 Then a line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when no
@@ -145,6 +158,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -173,6 +187,9 @@ class Task(NamedTuple):
     model: tuple = ()
     # search epochs of the search path (after its one warmup epoch)
     search_epochs: int = 2
+    # converter arch of the seeded source checkpoint the search and train
+    # paths start from (TPU.PRETRAINED); "" for random weights
+    pretrained: str = ""
 
 
 # the flagship configs on the synthetic pools at each task's native
@@ -215,14 +232,31 @@ DEEPLABV3PLUS = Task("deeplabv3plus", PSPNET.cfg, OPTIC.data, 64,
                      model=("MODEL.NAME", "deeplabv3plus"))
 POINTREND = Task("pointrend", PSPNET.cfg, OPTIC.data, 64, "pointrend_",
                  "optic", model=("MODEL.NAME", "pointrend"))
-ZOO = (PSPNET, LRASPP, OCRNET, FCN_UNET, DEEPLABV3PLUS, POINTREND)
+# mmseg's DeepLabV3+/S101-D8 (ResNeSt-101, split attention) starting from
+# a seeded mmcv-named ResNeSt-101 checkpoint converted by the port's CLI.
+# Counted at 743.2 MiB kept per image (zoo_costs), its 144-image search
+# step would keep 104.5 GiB; the zoo cells peaked at 1.05-1.13x their
+# count, so its search runs at the largest B that fits that way, 5 (90
+# images, 65.3 GiB counted); its train step (24 images) at the config's 8
+RESNEST = Task("resnest", PSPNET.cfg, OPTIC.data, 64, "resnest_", "optic",
+               ("TRAIN.BATCH_SIZE", "5"),
+               model=("MODEL.NAME", "deeplabv3plus", "MODEL.BACKBONE",
+                      "resnest101"), pretrained="resnest101")
+# the zoo's own Fast-SCNN architecture over its own backbone
+FAST_SCNN = Task("fast_scnn", PSPNET.cfg, OPTIC.data, 64, "fast_scnn_",
+                 "optic", model=("MODEL.NAME", "fast_scnn", "MODEL.BACKBONE",
+                                 "fast_scnn"))
+ZOO = (PSPNET, LRASPP, OCRNET, FCN_UNET, DEEPLABV3PLUS, POINTREND, RESNEST,
+       FAST_SCNN)
 # the zoo sweep: every architecture not driven as a cell over ResNetV1c-50,
-# and the FCN over ResNetV1c-101, ResNeXt-50/101 and HRNet-W32/48
+# and the FCN over ResNetV1c-101, ResNeXt-50/101, HRNet-W32/48, ResNeSt-50
+# and CGNet
 SWEEP = tuple((a, "resnet50_v1c") for a in (
     "deeplabv3", "upernet", "sem_fpn", "nonlocal_net", "gcnet", "dnlnet",
     "ccnet", "annnet", "apcnet", "dmnet", "emanet", "danet", "psanet",
     "encnet", "fast_scnn")) + tuple(("fcn", b) for b in (
-        "resnet101_v1c", "resnext50", "resnext101", "hrnet_w32", "hrnet_w48"))
+        "resnet101_v1c", "resnext50", "resnext101", "hrnet_w32", "hrnet_w48",
+        "resnest50", "cgnet"))
 
 
 def log(msg: str) -> None:
@@ -563,6 +597,154 @@ def check_rewards_never_sync(dev, gen):
         "equal to the CPU within rtol 1e-5")
 
 
+def _seeded_conv(sd: dict, key: str, weight, gen) -> None:
+    sd[key] = torch.randn(tuple(weight.shape), generator=gen) * math.sqrt(
+        2.0 / weight[0].numel())
+
+
+def _seeded_bn(sd: dict, prefix: str, bn, gen) -> None:
+    c = bn.weight.shape[0]
+    sd[f"{prefix}.weight"] = torch.rand(c, generator=gen) + 0.5
+    sd[f"{prefix}.bias"] = 0.1 * torch.randn(c, generator=gen)
+    sd[f"{prefix}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+    sd[f"{prefix}.running_var"] = torch.rand(c, generator=gen) + 0.5
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def mmcv_resnest_state_dict(depth: int, seed: int) -> dict:
+    """A seeded ResNeSt-``depth`` checkpoint in mmcv's naming (stem convs
+    ``stem.{0,3,6}`` and BatchNorms ``stem.{1,4,7}``; ``layerS.B`` blocks
+    of ``conv1``/``bn1``, the split attention ``conv2.{conv,bn0,fc1,bn1,
+    fc2}`` with its fcs as 1x1 convs, ``conv3``/``bn3`` and the avg-down
+    shortcut ``downsample.{1,2}``), at the port's ResNeSt shapes."""
+    from aadg_tpu_torch.models.zoo.backbones import ResNeSt
+    with torch.device("meta"):
+        bb = ResNeSt(depth)
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for i, ci in enumerate((0, 3, 6)):
+        _seeded_conv(sd, f"stem.{ci}.weight", getattr(bb, f"stem{i}").weight,
+                     gen)
+        _seeded_bn(sd, f"stem.{ci + 1}", getattr(bb, f"stem_bn{i}"), gen)
+    for s, n in enumerate(bb.stage_blocks):
+        for b in range(n):
+            blk, p = getattr(bb, f"layer{s + 1}_{b}"), f"layer{s + 1}.{b}"
+            sac = blk.conv2
+            _seeded_conv(sd, p + ".conv1.weight", blk.conv1.weight, gen)
+            _seeded_bn(sd, p + ".bn1", blk.bn1, gen)
+            _seeded_conv(sd, p + ".conv2.conv.weight", sac.conv.weight, gen)
+            _seeded_bn(sd, p + ".conv2.bn0", sac.bn0, gen)
+            for name, fc, bn in (("fc1", sac.fc1, sac.bn1),
+                                 ("fc2", sac.fc2, None)):
+                out, inp = fc.weight.shape
+                sd[f"{p}.conv2.{name}.weight"] = torch.randn(
+                    out, inp, 1, 1, generator=gen) / math.sqrt(inp)
+                sd[f"{p}.conv2.{name}.bias"] = 0.1 * torch.randn(
+                    out, generator=gen)
+                if bn is not None:
+                    _seeded_bn(sd, p + ".conv2.bn1", bn, gen)
+            _seeded_conv(sd, p + ".conv3.weight", blk.conv3.weight, gen)
+            _seeded_bn(sd, p + ".bn3", blk.bn3, gen)
+            if blk.down:
+                _seeded_conv(sd, p + ".downsample.1.weight",
+                             blk.down_conv.weight, gen)
+                _seeded_bn(sd, p + ".downsample.2", blk.down_bn, gen)
+    return sd
+
+
+def torchvision_mobilenet_v2_state_dict(seed: int) -> dict:
+    """A seeded MobileNetV2 checkpoint in torchvision's naming
+    (``features.0`` and ``features.18`` ConvBNReLUs, ``features.N.conv``
+    inverted residuals, the classifier the converter skips), at the port
+    encoder's shapes."""
+    from aadg_tpu_torch.models.mobilenetv2 import MobileNetV2Encoder
+    with torch.device("meta"):
+        enc = MobileNetV2Encoder()
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv_bn(prefix, m):
+        _seeded_conv(sd, f"{prefix}.0.weight", m.Conv_0.weight, gen)
+        _seeded_bn(sd, f"{prefix}.1", m.BatchNorm_0, gen)
+    conv_bn("features.0", enc.ConvBNReLU6_0)
+    for i, name in enumerate(enc.blocks):
+        blk, p = getattr(enc, name), f"features.{i + 1}.conv"
+        j = 0
+        if blk.expand:
+            conv_bn(f"{p}.0", blk.ConvBNReLU6_0)
+            j = 1
+        conv_bn(f"{p}.{j}", getattr(blk, blk.dw_name))
+        _seeded_conv(sd, f"{p}.{j + 1}.weight", blk.Conv_0.weight, gen)
+        _seeded_bn(sd, f"{p}.{j + 2}", blk.BatchNorm_0, gen)
+    conv_bn(f"features.{len(enc.blocks) + 1}", enc.ConvBNReLU6_1)
+    sd["classifier.1.weight"] = 0.01 * torch.randn(1000, 1280, generator=gen)
+    sd["classifier.1.bias"] = torch.zeros(1000)
+    return sd
+
+
+SOURCES = {"resnest101": lambda: {
+               "state_dict": {f"backbone.{k}": v for k, v in
+                              mmcv_resnest_state_dict(101, 11).items()},
+               "meta": {"seed": 11}},
+           "mobilenet_v2": lambda: torchvision_mobilenet_v2_state_dict(12)}
+
+
+def pretrained_file(arch: str, tmp: Path) -> str:
+    """Write the seeded source checkpoint ``SOURCES[arch]`` to ``tmp`` and
+    convert it with ``python -m aadg_tpu_torch.convert_weights``; the
+    converted file's path."""
+    src, dst = tmp / f"{arch}.pth", tmp / f"{arch}.pt"
+    torch.save(SOURCES[arch](), src)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "aadg_tpu_torch.convert_weights", "--arch",
+         arch, str(src), str(dst)], capture_output=True, text=True,
+        timeout=600, check=True)
+    n = len(torch.load(dst, map_location="cpu", weights_only=True))
+    log(f"[pretrained] {arch}: seeded source checkpoint of "
+        f"{src.stat().st_size / 2**20:.1f} MiB converted in "
+        f"{time.perf_counter() - t0:.1f} s to {n} tensors "
+        f"({out.stdout.strip()})")
+    return str(dst)
+
+
+@contextlib.contextmanager
+def starts_from(path: str, tag: str):
+    """With ``path`` (``TPU.PRETRAINED``), the run in the block must start
+    from it: the weights of the module it is grafted into, as ``init_state``
+    leaves them, must equal the file's."""
+    if not path:
+        yield
+        return
+    from aadg_tpu_torch.engine import search, state, train
+    from aadg_tpu_torch.utils.pretrained import find_graft_point
+    loaded = torch.load(path, map_location="cpu", weights_only=True)
+    seen = []
+
+    def spy(ent, seed, pretrained="", logger=None):
+        sd, cs = state.init_state(ent, seed, pretrained, logger)
+        at = find_graft_point(sd.model, loaded)
+        module = sd.model.get_submodule(".".join(at))
+        seen.append((at, {k: v.detach().to("cpu", copy=True)
+                          for k, v in module.state_dict().items()}))
+        return sd, cs
+    saved = search.init_state, train.init_state
+    search.init_state = train.init_state = spy
+    try:
+        yield
+    finally:
+        search.init_state, train.init_state = saved
+    if len(seen) != 1:
+        raise AssertionError(f"{tag}: init_state ran {len(seen)} times")
+    at, got = seen[0]
+    differ = [k for k, v in loaded.items() if not torch.equal(got[k], v)]
+    if differ:
+        raise AssertionError(f"{tag}: {len(differ)} tensors at step 0 differ "
+                             f"from {path}, e.g. {differ[:3]}")
+    log(f"{tag} TPU.PRETRAINED: the model's {'/'.join(at)} at step 0 equals "
+        f"the converted file ({len(loaded)} tensors)")
+
+
 def reference_batch(task: Task):
     """One image per domain of the task's synthetic pools at
     ``task.ref_size``^2, as a (1, 3, S, S, 3) batch."""
@@ -632,17 +814,21 @@ def launch_counters() -> dict:
             "sinkhorn_solve": sinkhorn.sinkhorn_solve}
 
 
-def drive(task: Task, flags, opts=()):
+def drive(task: Task, flags, opts=(), weights: str = "", tag: str = ""):
     """``python -m aadg_tpu_torch.run <flags> KEY VALUE ...`` in process,
     on the card, at full width, with every launch counter set to 0 just
-    before; returns (its result, the launches it made)."""
+    before; with ``weights``, as ``TPU.PRETRAINED``, checked to be the
+    model's start (``starts_from``). Returns (its result, the launches it
+    made)."""
     from aadg_tpu_torch import run
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
-    out = run.main(["--cfg", task.cfg, "--output_dir", str(OUT_DIR), *flags,
-                    *task.data, *task.model, "LOG_DIR",
-                    str(OUT_DIR / "log"), *opts])
+    with starts_from(weights, tag):
+        out = run.main(["--cfg", task.cfg, "--output_dir", str(OUT_DIR),
+                        *flags, *task.data, *task.model, "LOG_DIR",
+                        str(OUT_DIR / "log"), *opts,
+                        *(("TPU.PRETRAINED", weights) if weights else ())])
     return out, {k: fn.launches for k, fn in counters.items()}
 
 
@@ -694,8 +880,13 @@ def epoch_costs(summary) -> str:
                 round(e["checkpoint_write_seconds"] * 1e3, 1) for e in ck]))
 
 
-def phase_search_path(dev, task: Task):
+def phase_search_path(dev, task: Task, weights: str = "",
+                      path: str = ""):
+    """``--mode search`` of ``task`` (from ``weights`` if given); its
+    launches are those of path ``path`` (default: the task's search)."""
     from aadg_tpu_torch.utils.checkpoint import load_checkpoint
+    path = path or task.prefix + "search"
+    tag = f"[{path} path]"
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     summary, launches = drive(
@@ -703,10 +894,10 @@ def phase_search_path(dev, task: Task):
                                      "TRAIN.END_EPOCH",
                                      str(1 + task.search_epochs),
                                      "TPU.STEPS_PER_EPOCH", "2",
-                                     *task.search_opts])
+                                     *task.search_opts], weights, tag)
     wall = time.perf_counter() - t0
     n_steps = len(summary["search_step_seconds"])
-    check_launches(task.prefix + "search", launches, {
+    check_launches(path, launches, {
         "sinkhorn_solve": n_steps, "softmin": 0, "hist3": L * n_steps,
         "lut_apply3": L * n_steps})
     check_epochs(summary)
@@ -719,7 +910,6 @@ def phase_search_path(dev, task: Task):
     imgs = summary["images_per_search_step"]
     med = statistics.median(steps)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    tag = f"[{task.prefix}search path]"
     cut = (f" [cut: {' '.join(task.search_opts)}]"
            if task.search_opts else "")
     log(f"{tag} run_search ({task.name}{cut}): {len(summary['epochs'])} "
@@ -734,14 +924,15 @@ def phase_search_path(dev, task: Task):
     return launches, summary["out_dir"]
 
 
-def phase_train_path(dev, task: Task, search_dir: str):
+def phase_train_path(dev, task: Task, search_dir: str, weights: str = ""):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     summary, launches = drive(
         task, ["--mode", "train"], ["TPU.AUTOAUGMENT", "True",
                                     "TEST.MODEL_DIR", search_dir,
                                     "TRAIN.END_EPOCH", "2",
-                                    "TPU.STEPS_PER_EPOCH", "3"])
+                                    "TPU.STEPS_PER_EPOCH", "3"], weights,
+        f"[{task.prefix}train path]")
     wall = time.perf_counter() - t0
     steps = summary["train_step_seconds"]
     check_launches(task.prefix + "train", launches, {
@@ -1418,18 +1609,32 @@ def main() -> int:
     with timed("zoo costs"):
         phase_zoo_costs()
     by_path, profiles = {}, {}
-    for task in (OPTIC, RVS, SEGFORMER, *ZOO):
-        p = task.prefix
-        with timed(f"{task.name} cell"):
-            phase_reference(dev, task)
-            by_path[p + "search"], search_dir = phase_search_path(dev, task)
-            by_path[p + "train"], train_dir = phase_train_path(dev, task,
-                                                               search_dir)
-            phase_train_reference(dev, task)
-            by_path[p + "test"] = phase_test_path(task, train_dir,
-                                                  search_dir)
-            for kind in ("search", "train"):
-                profiles[p + kind] = phase_profile(dev, kind, task)
+    # the seeded source checkpoints and their conversions
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
+        tmp = Path(tmpdir)
+        for task in (OPTIC, RVS, SEGFORMER, *ZOO):
+            p = task.prefix
+            with timed(f"{task.name} cell"):
+                # the earlier cells' cached blocks go back to the card first:
+                # resnest's search peaks at 69.5 GiB of the card's 79.2
+                gc.collect()
+                torch.cuda.empty_cache()
+                weights = (pretrained_file(task.pretrained, tmp)
+                           if task.pretrained else "")
+                phase_reference(dev, task)
+                by_path[p + "search"], search_dir = phase_search_path(
+                    dev, task, weights)
+                by_path[p + "train"], train_dir = phase_train_path(
+                    dev, task, search_dir, weights)
+                phase_train_reference(dev, task)
+                by_path[p + "test"] = phase_test_path(task, train_dir,
+                                                      search_dir)
+                for kind in ("search", "train"):
+                    profiles[p + kind] = phase_profile(dev, kind, task)
+        with timed("pretrained optic search"):
+            by_path["pretrained_search"], _ = phase_search_path(
+                dev, OPTIC._replace(search_epochs=1),
+                pretrained_file("mobilenet_v2", tmp), "pretrained_search")
     with timed("segformer attention and remat"):
         attn = phase_attention(dev)["per_step"]
         busy = profiles["segformer_search"]["busy_ms"]

@@ -151,7 +151,7 @@ def test_search_loop_tracks_jax(tmp_path, monkeypatch):
     idx, draws = _replay(want["step_keys"], store)
     tokens = [torch.from_numpy(t) for t in want["tokens"]]
 
-    def init_state(ent, seed, pretrained=""):
+    def init_state(ent, seed, pretrained="", logger=None):
         tsd = port_state(ent, sd)
         _, tcs = tstate.init_state(ent, seed)
         tcs.controller.load_state_dict(controller_from_jax(ctrl))

@@ -11,9 +11,11 @@ synthetic_optic at crop 64, B=2, M=2 (f32, as the CPU parity tests run).
   thresholded maps on at least 99.9% of the pixels;
 - ``TPU.PROFILE True`` writes one ``torch.profiler`` trace of the first
   epoch (the warmup's steps, none of the search epoch's) to
-  ``<run dir>/profile`` and logs where; ``TPU.PRETRAINED`` set makes
-  search and train raise ``NotImplementedError`` citing ROADMAP queue 1,
-  item 12, instead of training from random weights.
+  ``<run dir>/profile`` and logs where;
+- ``TPU.PRETRAINED`` naming a seeded torchvision MobileNetV2 converted by
+  ``python -m aadg_tpu_torch.convert_weights`` (auto-grafted, or as
+  ``file::encoder``): search and train start from the file's encoder
+  weights exactly, log where they went, and run finite.
 """
 
 import csv
@@ -27,14 +29,20 @@ from pathlib import Path
 import imageio.v2 as imageio
 import numpy as np
 import pytest
+import torch
 
 from aadg_tpu import utils as jutils
 from aadg_tpu.config import load_config as jax_load_config
 from aadg_tpu.engine import test as jtest
+from aadg_tpu_torch import convert_weights
 from aadg_tpu_torch import run as trun
+from aadg_tpu_torch.engine import search as tsearch
+from aadg_tpu_torch.engine import state as tstate
+from aadg_tpu_torch.engine import train as ttrain
 from aadg_tpu_torch.utils import checkpoint as tck
 from aadg_tpu_torch.utils.png import encode_png
 from aadg_tpu_torch.weights import from_flax
+from test_torch_parity import _torch_mobilenet_v2
 from torch_port_helpers import few_torch_threads  # noqa: F401
 from torch_port_helpers import (CFG, OPTS, _np, sharpen_seg_head,
                                 step_pair)
@@ -234,8 +242,32 @@ def test_profile_traces_the_first_epoch(tmp_path):
     assert f"profiler trace written to {out / 'profile'}" in log
 
 
-@pytest.mark.parametrize("mode", ["search", "train"])
-def test_pretrained_weights_raise(tmp_path, mode):
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        _main(tmp_path, "--mode", mode, "--smoke_test", "TPU.PRETRAINED",
-              str(tmp_path / "encoder.msgpack"))
+@pytest.mark.parametrize("mode,graft", [("search", ""), ("train", ""),
+                                        ("search", "::encoder")])
+def test_pretrained_weights_start_the_run(tmp_path, monkeypatch, mode,
+                                          graft):
+    torch.manual_seed(0)
+    src, dst = tmp_path / "mnv2.pth", tmp_path / "mnv2.pt"
+    torch.save({f"features.{k}": v
+                for k, v in _torch_mobilenet_v2().state_dict().items()}, src)
+    assert convert_weights.main(["--arch", "mobilenet_v2", str(src),
+                                 str(dst)]) == 0
+    engine = {"search": tsearch, "train": ttrain}[mode]
+    at_start = []
+
+    def spy(ent, seed, pretrained="", logger=None):
+        sd, cs = tstate.init_state(ent, seed, pretrained, logger)
+        at_start.append({k: v.clone()
+                         for k, v in sd.model.encoder.state_dict().items()})
+        return sd, cs
+    monkeypatch.setattr(engine, "init_state", spy)
+    summary = _main(tmp_path, "--mode", mode, "--smoke_test",
+                    "TPU.PRETRAINED", f"{dst}{graft}")
+    loaded = torch.load(dst, weights_only=True)
+    assert len(at_start) == 1 and sorted(at_start[0]) == sorted(loaded)
+    for k, v in loaded.items():
+        assert torch.equal(at_start[0][k], v), k
+    for e in summary["epochs"]:
+        assert all(math.isfinite(v) for v in e["metrics"].values()), e
+    log = (Path(summary["out_dir"]) / "train.log").read_text()
+    assert f"loaded pretrained weights {dst} at encoder" in log

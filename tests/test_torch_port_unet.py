@@ -10,7 +10,8 @@ first up-sampling joins 512 + 512 channels).
 Factory: ``class_parser``/``domain_parser``/``channel_parser`` equal the
 JAX tables; ``build_entities`` takes the class count and the
 discriminator's width from the model (rvs: one class, DeepLabV3+ 1280,
-UNet 512), and unported models (the zoo's, other backbones) raise.
+UNet 512), and unported models (the custom DeepLab and the DeepLabV3+
+backbones other than MobileNetV2, ROADMAP queue 1, item 7c) raise.
 """
 
 import jax
@@ -143,11 +144,11 @@ def test_entities_take_model_from_factory(cfg, opts, model, classes, feat):
     assert logits.shape == (1, 32, 32, classes) and f.shape == (1, feat)
 
 
-@pytest.mark.parametrize("opts", [["MODEL.NAME", "upernet",
-                                   "MODEL.BACKBONE", "resnest50"],
+@pytest.mark.parametrize("opts", [["MODEL.NAME", "customdeeplab",
+                                   "MODEL.BACKBONE", "xception"],
                                   ["MODEL.BACKBONE", "resnet50"]])
 def test_unported_models_raise(opts):
-    cfg = load_config(RVS_FIXTURE if opts[1] == "upernet"
+    cfg = load_config(RVS_FIXTURE if opts[1] == "customdeeplab"
                       else "experiments/rvs_sinkhorn/diversity_ex.yaml",
                       opts)
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):

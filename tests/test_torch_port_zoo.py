@@ -25,9 +25,9 @@ operations alone, slower than the one program).
   ``to_flax`` maps it back, with no leaf left over on either side;
 - the builder: pooled-feature widths equal JAX's segmentors' (the
   backbone's ``channel_parser``, or the FPN's for ``sem_fpn`` and
-  ``pointrend``), the draws hold one mask per dropout, and the backbones
-  still to port (ResNeSt, FastSCNN, CGNet) raise ``NotImplementedError``
-  citing ROADMAP queue 1, item 7, step 3.
+  ``pointrend``), the draws hold one mask per dropout, and pairs over the
+  last backbones ported (ResNeSt, FastSCNN, CGNet) build through the
+  factory and the entities.
 """
 
 import math
@@ -314,14 +314,28 @@ def test_weight_maps_cover_every_zoo_leaf(arch, backbone, classes):
     ["MODEL.NAME", "deeplabv3", "MODEL.BACKBONE", "cgnet"],
     ["MODEL.NAME", "fcn", "MODEL.BACKBONE", "resnest50"],
     ["MODEL.NAME", "pspnet", "MODEL.BACKBONE", "fast_scnn"]])
-def test_unported_zoo_names_raise(opts):
+def test_last_zoo_backbones_build(opts):
+    """The names that raised until ResNeSt, Fast-SCNN and CGNet were
+    ported build through the factory and the entities, with JAX's pooled
+    width, and give logits of the input's size (shapes only, on the meta
+    device)."""
     cfg = load_config("experiments/zoo/pspnet_r50_optic.yaml",
-                      ["DATASET.NAME", "synthetic_optic", *opts])
-    for fn in (lambda: tmodels.build_model(cfg, 2),
-               lambda: tstate.build_entities(cfg, "search", device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1, item 7, step 3"):
-            fn()
+                      ["DATASET.NAME", "synthetic_optic", "TPU.CROP_SIZE",
+                       "64", *opts])
+    jcfg = jax_load_config("experiments/zoo/pspnet_r50_optic.yaml",
+                           ["DATASET.NAME", "synthetic_optic", *opts])
+    ent = tstate.build_entities(cfg, "search", device="cpu")
+    assert ent.feature_dim == jbuilder.build_segmentor(
+        opts[1], opts[3], 2)[1] == tmodels.channel_parser(opts[3]) \
+        == jmodels.channel_parser(opts[3])
+    assert type(jmodels.build_model(jcfg)).__name__ == "EncoderDecoder"
+    with torch.device("meta"):
+        model = tmodels.build_model(cfg, 2)
+    with torch.no_grad():
+        logits, feat = model.eval()(torch.zeros(1, 64, 64, 3,
+                                                device="meta"))
+    assert tuple(logits.shape) == (1, 64, 64, 2)
+    assert tuple(feat.shape) == (1, ent.feature_dim)
 
 
 @pytest.mark.parametrize("arch", ["sem_fpn", "pointrend", "annnet",
